@@ -10,11 +10,14 @@ Phases (any failure exits non-zero; nothing is caught):
    print what ``-Xptxas -v`` reports for each;
 3. hold each kernel against its plain PyTorch version at main-path shapes
    (fp32 ≤ 1e-4 max abs; bf16 within atol 1e-2 + rtol 1e-2, one bf16
-   rounding apart);
+   rounding apart); the paged flash kernel at pages of 16, 64 and 48
+   tokens, with shared pages, unmapped entries and a trash page of large
+   finite garbage that must change no output, and against the dense
+   kernel on the gathered view of the same pools;
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
    ``repro_torch.launch.serve.main`` with its defaults, then through
    ``ServingEngine`` with 16 requests of 100–600 prompt tokens, 8 slots,
-   max_len 2048 and 32 new tokens each, served five times by one engine
+   max_len 2048 and 32 new tokens each, served three times by one engine
    (tok/s of each run, their spread and the host's CPU) — both kernels
    must have launched in every run;
 5. parity on the card: 2 full-width layers in fp32 served with the kernels
@@ -22,9 +25,20 @@ Phases (any failure exits non-zero; nothing is caught):
    full-depth logits of one prefill are compared too;
    A profiler trace of 16 engine steps shows device time by kernel and
    the card's idle share;
-6. time each kernel, its plain version and one PyTorch library call for
+6. paged KV with prefix sharing: parity on the card (fp32, 2 layers: the
+   paged engine with and without sharing gives the dense engine's greedy
+   tokens), then full-width bf16 serving with ``--kv-page-tokens 64``
+   through the CLI and through one ``ServingEngine`` (16 requests opening
+   with one 512-token system prefix and a 100–600-token suffix, 8 slots,
+   max_len 2048, 32 new tokens each, served three times, beside a dense
+   engine on the same requests) — the paged kernel must have launched and
+   pages must have been reused;
+7. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
-   shapes, beside the least time the card could take.
+   shapes, beside the least time the card could take; the paged kernel
+   also beside the dense kernel at the same depths and the two-call
+   yardstick gather + SDPA (no single PyTorch call reads through a page
+   table).
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -83,11 +97,24 @@ def nvidia_smi_line() -> str:
 
 def reset_counts() -> None:
     fa.launches = 0
+    fa.paged_launches = 0
     rn.launches = 0
 
 
 def counts() -> dict:
-    return {"flash_attention": fa.launches, "rmsnorm": rn.launches}
+    return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
+            "rmsnorm": rn.launches}
+
+
+def require(got: dict, names, what: str) -> None:
+    """Fail unless every kernel in ``names`` launched in the run ``got``
+    counts."""
+    if not all(got[n] for n in names):
+        raise AssertionError(f"{what}: a kernel of the path never launched: {got}")
+
+
+DENSE_PATH = ("flash_attention", "rmsnorm")
+PAGED_PATH = ("flash_attention_paged", "rmsnorm")
 
 
 def within(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -142,6 +169,72 @@ def rms_inputs(dev, dtype, rows=512, d=2048):
             torch.randn(d, generator=g, device=dev) * 0.1)
 
 
+def paged_inputs(dev, dtype, *, P, depths, q_lens, sq, max_len=2048, h=32, kv=8, d=64,
+                 shared=2, seed=SEED):
+    """Pools and a page table as the engine builds them: every page a row's
+    visible keys need is mapped, in a random order, rows 0 and 1 sharing
+    their first ``shared`` pages; the other entries are -1.  The trash page
+    holds large finite garbage that no query may see."""
+    rng = np.random.default_rng(seed)
+    b = len(depths)
+    pps = -(-max_len // P)
+    need = [-(-(dp + n) // P) for dp, n in zip(depths, q_lens)]
+    num_pages = sum(need) + 3
+    ids = iter(rng.permutation(num_pages).tolist())
+    table = np.full((b, pps), -1, np.int32)
+    for bi, n in enumerate(need):
+        for j in range(n):
+            share = bi == 1 and j < shared and table[0, j] >= 0
+            table[bi, j] = table[0, j] if share else next(ids)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool_k = torch.randn(num_pages + 1, P, kv, d, generator=g, device=dev).to(dtype)
+    pool_v = torch.randn(num_pages + 1, P, kv, d, generator=g, device=dev).to(dtype)
+    pool_k[-1] = 1e4
+    pool_v[-1] = -1e4
+    return dict(
+        q=torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype),
+        pool_k=pool_k, pool_v=pool_v, table=torch.from_numpy(table).to(dev),
+        q_offsets=torch.tensor(depths, dtype=torch.int32, device=dev),
+        q_lens=torch.tensor(q_lens, dtype=torch.int32, device=dev),
+    )
+
+
+def paged_cases(dev, dtype):
+    """Decode and fused-chunk rows at random depths (q_len 0, 1, 17, 64),
+    row 1 reading row 0's shared pages; pages of 16, 64 and 48 tokens (48
+    does not divide the kernel's 64-key tile); window and softcap."""
+    rng = np.random.default_rng(SEED)
+    decode = rng.integers(0, 2048, size=8).tolist()
+    lens = [64, 1, 0, 64, 17, 1, 64, 0]
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in lens]
+    depths[1] = depths[0] + 64
+    cases = {}
+    for P in (16, 64, 48):
+        cases[f"fused_chunk_P{P}"] = (
+            paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=64), {})
+    cases["decode_P64"] = (
+        paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1), {})
+    cases["fused_chunk_P64_window_softcap"] = (
+        paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64),
+        {"window": 64, "softcap": 50.0})
+    return cases
+
+
+def run_paged(fn, inp, extra):
+    d = inp["q"].shape[-1]
+    return fn(inp["q"], inp["pool_k"], inp["pool_v"], inp["table"], inp["q_offsets"],
+              inp["q_lens"], scale=d ** -0.5, causal=True, window=extra.get("window"),
+              softcap=extra.get("softcap"))
+
+
+def gathered(inp) -> dict:
+    """The dense kernel's inputs for the same function: the logical view of
+    both pools, gathered through the table."""
+    return dict(q=inp["q"], k=fa.paged_view(inp["pool_k"], inp["table"]),
+                v=fa.paged_view(inp["pool_v"], inp["table"]),
+                q_offsets=inp["q_offsets"], q_lens=inp["q_lens"])
+
+
 # --------------------------------------------------------------------- phases
 def phase_card() -> dict:
     if not torch.cuda.is_available():
@@ -180,6 +273,24 @@ def phase_check(dev) -> dict:
                     raise AssertionError(f"flash {case}: row {bi} leaked past q_len={n}")
             errs[("flash_attention", case, dtype)] = err
             log(f"[check] flash_attention {case} {str(dtype)[6:]}: max abs err {err:.3e}")
+        for case, (inp, extra) in paged_cases(dev, dtype).items():
+            out = run_paged(fa.flash_attention_paged, inp, extra)
+            ref = run_paged(fa.flash_attention_paged_plain, inp, extra)
+            dense = run_flash(fa.flash_attention, gathered(inp), extra)
+            inp["pool_k"][-1] = 0
+            inp["pool_v"][-1] = 0
+            clean = run_paged(fa.flash_attention_paged, inp, extra)
+            torch.cuda.synchronize(dev)
+            err = within(out, ref)
+            if not torch.equal(out, clean):
+                raise AssertionError(f"flash_paged {case}: the trash page changed an output")
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash_paged {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention_paged", case, dtype)] = err
+            log(f"[check] flash_attention_paged {case} {str(dtype)[6:]}: max abs err {err:.3e}; "
+                f"vs the dense kernel on the gathered view: max abs diff "
+                f"{(out.float() - dense.float()).abs().max().item():.3e}")
         x, w = rms_inputs(dev, dtype)
         err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
         errs[("rmsnorm", "rows512", dtype)] = err
@@ -239,7 +350,7 @@ def host_line() -> str:
     return f"cpu={model!r} cores={os.cpu_count()} usable={usable} loadavg={load}"
 
 
-ENGINE_REPEATS = 5
+ENGINE_REPEATS = 3
 
 
 def phase_serve(dev) -> dict:
@@ -251,8 +362,7 @@ def phase_serve(dev) -> dict:
     torch.cuda.synchronize(dev)
     cli_counts = counts()
     log(f"[serve] cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
-    if not all(cli_counts.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {cli_counts}")
+    require(cli_counts, DENSE_PATH, "dense serve CLI")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("the CLI left requests unserved")
     del engine
@@ -273,8 +383,7 @@ def phase_serve(dev) -> dict:
         toks = sum(len(r.out_tokens) for r in reqs)
         prompt_toks = sum(len(r.prompt) for r in reqs)
         tok_s.append(toks / wall)
-        if not all(eng_counts.values()):
-            raise AssertionError(f"a kernel of the main path never launched: {eng_counts}")
+        require(eng_counts, DENSE_PATH, "dense engine")
         for r in reqs:
             if not (r.done and len(r.out_tokens) == 32
                     and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -385,6 +494,163 @@ def phase_parity(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def shared_prefix_requests(cfg, *, n, prefix, suffix, max_new, rid0=0, seed=SEED):
+    """``n`` requests opening with one ``prefix``-token system prompt and a
+    suffix of ``suffix`` = (lo, hi) tokens, from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab_size, size=prefix).tolist()
+    return [
+        Request(rid=rid0 + i, prompt=system + rng.integers(1, cfg.vocab_size, size=int(m)).tolist(),
+                max_new_tokens=max_new)
+        for i, m in enumerate(rng.integers(suffix[0], suffix[1] + 1, size=n))
+    ]
+
+
+def make_paged_engine(cfg, params, dev, *, slots, max_len, page_tokens, sharing=True):
+    return ServingEngine(
+        cfg, params, h100_cluster(1), devices=[dev], slots=slots, max_len=max_len,
+        plan_cfg=PlanConfig(method="moirai", time_limit=20.0, objective="throughput",
+                            serving_slots=slots, kv_page_tokens=page_tokens,
+                            prefix_sharing=sharing),
+        eos_id=-1,
+    )
+
+
+def serve_reqs(eng, reqs, dev) -> float:
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def phase_parity_paged(dev) -> None:
+    """fp32, 2 full-width layers: the paged engine, with prefix sharing and
+    without, gives the dense engine's greedy tokens on shared-prefix
+    traffic (8 requests, 128-token prefix, 4 slots, pages of 64)."""
+    cfg = full_cfg(n_layers=2, dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    tokens, stats = {}, {}
+    for name, kw in (("dense", None), ("paged_shared", True), ("paged_private", False)):
+        eng = (make_engine(cfg, params, dev, slots=4, max_len=1024) if kw is None else
+               make_paged_engine(cfg, params, dev, slots=4, max_len=1024, page_tokens=64,
+                                 sharing=kw))
+        reqs = shared_prefix_requests(cfg, n=8, prefix=128, suffix=(30, 200), max_new=16,
+                                      seed=SEED + 3)
+        reset_counts()
+        serve_reqs(eng, reqs, dev)
+        got = counts()
+        require(got, DENSE_PATH if kw is None else PAGED_PATH, f"parity {name}")
+        tokens[name] = [r.out_tokens for r in reqs]
+        stats[name] = eng.straggler_report()["kv"]
+        log(f"[parity-paged] fp32 2 layers {name}: launches {got}, kv {stats[name]}, "
+            f"skipped prefill chunks {eng.prefill_chunks_skipped}")
+        del eng
+    if stats["paged_shared"]["reused_pages"] == 0:
+        raise AssertionError("parity traffic reused no page: sharing was not exercised")
+    for name in ("paged_shared", "paged_private"):
+        if tokens[name] != tokens["dense"]:
+            raise AssertionError(f"fp32 greedy tokens differ between {name} and dense")
+    log("[parity-paged] fp32 2 layers: paged (shared and private) greedy tokens identical "
+        "to dense over 8 requests x 16 steps")
+    del params
+    torch.cuda.empty_cache()
+
+
+PAGED_REPEATS = 3
+
+
+def phase_serve_paged(dev) -> dict:
+    log("[serve-paged] repro_torch.launch.serve.main(['--arch', 'llama3.2-1b', "
+        "'--kv-page-tokens', '64'])")
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, reqs = serve.main(["--arch", "llama3.2-1b", "--kv-page-tokens", "64"])
+    torch.cuda.synchronize(dev)
+    cli_counts = counts()
+    log(f"[serve-paged] cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
+    require(cli_counts, PAGED_PATH, "paged serve CLI")
+    if cli_counts["flash_attention"]:
+        raise AssertionError("the paged CLI run went through the dense flash kernel")
+    if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
+        raise AssertionError("the paged CLI left requests unserved")
+    del engine
+
+    cfg = full_cfg()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    mk = lambda rep: shared_prefix_requests(cfg, n=16, prefix=512, suffix=(100, 600),  # noqa: E731
+                                            max_new=32, rid0=100 * rep)
+    eng = make_paged_engine(cfg, params, dev, slots=8, max_len=2048, page_tokens=64)
+    tok_s, paged_tokens = [], None
+    prev = {"reused_pages": 0, "cow_copies": 0, "evicted": 0, "alloc": 0}
+    skipped0 = 0
+    for rep in range(PAGED_REPEATS):
+        reqs = mk(rep)
+        reset_counts()
+        wall = serve_reqs(eng, reqs, dev)
+        got = counts()
+        require(got, PAGED_PATH, "paged engine")
+        kv = eng.straggler_report()["kv"]
+        delta = {k: kv[k] - prev[k] for k in prev}
+        prev = {k: kv[k] for k in prev}
+        skipped = eng.prefill_chunks_skipped - skipped0
+        skipped0 = eng.prefill_chunks_skipped
+        if delta["reused_pages"] <= 0:
+            raise AssertionError(f"paged run {rep + 1} reused no page: {kv}")
+        for r in reqs:
+            if not (r.done and len(r.out_tokens) == 32
+                    and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
+                raise AssertionError(f"request {r.rid} not served right: {r.out_tokens}")
+        toks = sum(len(r.out_tokens) for r in reqs)
+        prompt_toks = sum(len(r.prompt) for r in reqs)
+        tok_s.append(toks / wall)
+        out = [r.out_tokens for r in reqs]
+        same = "" if paged_tokens is None else (
+            f", requests with run 1's tokens: {sum(a == b for a, b in zip(out, paged_tokens))}/16")
+        paged_tokens = paged_tokens or out
+        log(f"[serve-paged] paged run {rep + 1}/{PAGED_REPEATS}: 16 requests, {prompt_toks} "
+            f"prompt tokens, {toks} generated in {wall:.3f}s = {toks / wall:.1f} generated "
+            f"tok/s; this run: prefix hits (reused pages) {delta['reused_pages']}, COW copies "
+            f"{delta['cow_copies']}, evictions {delta['evicted']}, pages allocated "
+            f"{delta['alloc']}, skipped prefill chunks {skipped}; launches {got}{same}")
+    log(f"[serve-paged] pool stats after {PAGED_REPEATS} runs: {eng.straggler_report()['kv']}")
+    reset_counts()
+    eng.caches = None
+    eng._ensure_caches()
+    tokens = torch.randint(1, cfg.vocab_size, (8, 64), dtype=torch.int32)
+    eng.executor.forward(tokens, eng.caches, cache_pos=np.zeros(8, np.int32), kind="fused",
+                         q_lens=torch.full((8,), 64, dtype=torch.int32),
+                         page_table=eng._page_table())
+    torch.cuda.synchronize(dev)
+    per_fwd = counts()
+    log(f"[serve-paged] launches per fused forward: {per_fwd}")
+    del eng
+
+    # the same requests through a dense engine, in the same call
+    dense = make_engine(cfg, params, dev, slots=8, max_len=2048)
+    dense_tok_s, agree = [], None
+    for rep in range(2):
+        reqs = mk(rep)
+        wall = serve_reqs(dense, reqs, dev)
+        dense_tok_s.append(sum(len(r.out_tokens) for r in reqs) / wall)
+        if rep == 0:
+            out = [r.out_tokens for r in reqs]
+            same_req = sum(a == b for a, b in zip(out, paged_tokens))
+            same_tok = sum(x == y for a, b in zip(out, paged_tokens) for x, y in zip(a, b))
+            agree = (same_req, same_tok)
+    log(f"[serve-paged] generated tok/s, paged {[round(x, 1) for x in tok_s]} vs dense "
+        f"{[round(x, 1) for x in dense_tok_s]} on the same requests; bf16 paged vs dense "
+        f"tokens: {agree[0]}/16 requests and {agree[1]}/512 tokens identical (a shared "
+        "prefix's KV is computed in another step shape, so bf16 identity is reported, not "
+        "required)")
+    del dense, params
+    torch.cuda.empty_cache()
+    return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s,
+            "dense_tok_s": dense_tok_s}
+
+
 def time_ms(dev, fn, *, iters=50, flush=None) -> float:
     """Mean device time of one call, from CUDA events, after a warm-up.
 
@@ -469,6 +735,40 @@ def phase_time(dev) -> dict:
             library_ms=time_opt(dev, sdpa_call(inp, extra), iters=20, flush=flush),
             bound_ms=b_ms, bound_by=b_by,
         )
+    rng = np.random.default_rng(SEED)
+    decode = rng.integers(0, 2048, size=8).tolist()
+    lens = [64, 1, 0, 64, 17, 1, 64, 0]
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in lens]
+    for case, inp in (
+        ("decode", paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1, shared=0)),
+        ("fused_chunk", paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64,
+                                     shared=0)),
+    ):
+        dense_inp = gathered(inp)
+        byts, flops = flash_work(dense_inp, {})
+        # plus the table entries the kernel reads: one per page a row's
+        # visible keys touch
+        k_end = inp["q_offsets"] + inp["q_lens"]
+        byts += int(((k_end + 63) // 64).sum().item()) * 4
+        b_ms, b_by = bound(byts, flops, dtype)
+        gather = lambda: (fa.paged_view(inp["pool_k"], inp["table"]),  # noqa: E731
+                          fa.paged_view(inp["pool_v"], inp["table"]))
+        rows[("flash_attention_paged", case)] = dict(
+            ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged, inp, {}), flush=flush),
+            plain_ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged_plain, inp, {}),
+                             iters=10, flush=flush),
+            dense_ms=time_ms(dev, lambda: run_flash(fa.flash_attention, dense_inp, {}),
+                             flush=flush),
+            gather_ms=time_ms(dev, gather, iters=20, flush=flush),
+            sdpa_ms=time_opt(dev, sdpa_call(dense_inp, {}), iters=20, flush=flush),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        )
+        r = rows[("flash_attention_paged", case)]
+        sd = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms"
+        log(f"[time] flash_attention_paged {case} P=64 bf16: kernel {r['ms']:.4f} ms, dense "
+            f"kernel at the same depths {r['dense_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"yardstick gather {r['gather_ms']:.4f} ms + SDPA {sd}, bound {r['bound_ms']:.5f} "
+            f"ms ({r['bound_by']}), kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
     for nrows in (512, 8):
         x, w = rms_inputs(dev, dtype, rows=nrows)
         w1 = (1.0 + w).to(dtype)
@@ -485,6 +785,8 @@ def phase_time(dev) -> dict:
             bound_ms=b_ms, bound_by=b_by,
         )
     for (name, case), r in rows.items():
+        if name == "flash_attention_paged":
+            continue
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[time] {name} {case} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
@@ -501,24 +803,34 @@ def main() -> int:
     errs = phase_check(dev)
     served = phase_serve(dev)
     phase_parity(dev)
+    phase_parity_paged(dev)
+    served_paged = phase_serve_paged(dev)
     times = phase_time(dev)
 
     kernels = []
-    for name, case, source, replaces in (
-        ("flash_attention", "fused_chunk", "src/repro_torch/csrc/flash_attention.cu",
+    for name, case, err_case, run, source, replaces in (
+        ("flash_attention", "fused_chunk", "fused_chunk", served,
+         "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:41"),
-        ("rmsnorm", "rows512", "src/repro_torch/csrc/rmsnorm.cu",
+        ("flash_attention_paged", "fused_chunk", "fused_chunk_P64", served_paged,
+         "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:120"),
+        ("rmsnorm", "rows512", "rows512", served, "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm/kernel.py:22"),
     ):
         t = times[(name, case)]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": served["cli"][name],
-            "max_abs_err": errs[(name, case, torch.bfloat16)],
+            "launches": run["cli"][name],
+            "max_abs_err": errs[(name, err_case, torch.bfloat16)],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": case, "launches_per_forward": served["per_forward"][name],
-        })
+            "shape": case, "launches_per_forward": run["per_forward"][name],
+        }
+        if name == "flash_attention_paged":
+            row.update(dense_ms=t["dense_ms"], yardstick_gather_ms=t["gather_ms"],
+                       yardstick_sdpa_ms=t["sdpa_ms"])
+        kernels.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
-// Dense flash attention for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention for Hopper (sm_90a), dense and paged K/V, plain C
+// interface for ctypes.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` of
-// src/repro/kernels/flash_attention/kernel.py (via `flash_attention_pallas`
-// and the wrapper `ops.py::flash_attention`).  Per batch row b and query
+// Replaces the Pallas TPU kernels `_flash_kernel` (dense, via
+// `flash_attention_pallas` and the wrapper `ops.py::flash_attention`) and
+// `_flash_kernel_paged` (via `flash_attention_pallas_paged` and
+// `ops.py::flash_attention_paged`) of
+// src/repro/kernels/flash_attention/kernel.py.  Per batch row b and query
 // head h, query i at absolute position qp = q_offsets[b] + i:
 //   out = softmax(softcap(scale * q k^T)) v   over the visible keys kp with
 //   kp < k_len, i < q_lens[b], causal kp <= qp, window kp > qp - window.
@@ -42,6 +45,26 @@
 // visible key, q_offset + min(q_len, last row) - 1, so idle rows cost
 // nothing and no unwritten cache slot is read.  No mma, wgmma, TMA or warp
 // specialisation yet: the products run on the fp32 CUDA cores.
+//
+// Paged K/V.  One kernel body, two ways to address a key row: the address
+// of key kp of batch row b, KV head g, is a template policy.  `DenseKV`
+// reads row (b, kp) of k/v [B, Sk, KV, D]; `PagedKV` reads the pools
+// [num_pages+1, P, KV, D] at page table[b, kp / P], row kp % P, with a
+// negative (unmapped) entry read as the trash page num_pages, as the TPU
+// wrapper clamps it.  The logical key axis is pages_per_slot·P long and the
+// softmax, masks, tiles and key-range trimming are the dense kernel's, so
+// both compute the same function in the same order.  The copy loop tests
+// `kp < k_end` before it reads the table, so no entry past a row's last
+// visible key is read and a tile that straddles into unmapped pages copies
+// zeros.  The 16-byte copies are per key row, so any page size P >= 1
+// works: a 64-key tile need not line up with pages (the TPU kernel pins its
+// key block to P; that is a choice of its DMA, not copied).
+//
+// Paged bound: bytes, the same mapped K/V bytes as dense at the same depths
+// plus the table entries read (one int32 per page a tile touches, 4 bytes
+// per P·KV·D·2 K/V bytes, under 0.01% at P = 64).  The table read costs an
+// integer division and one cached 4-byte load per 16-byte copy; the loads
+// of one key row hit the same entry in L1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,6 +96,27 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 
 constexpr int BK = 64;          // keys per tile
 
+// where key row kp of batch row b, KV head g starts, in elements of D:
+// the only place the dense and the paged kernels differ
+struct DenseKV {
+  int Sk;   // rows of k/v per batch row
+  __device__ __forceinline__ long long row(long long b, int kp, int KV, int g) const {
+    return (b * Sk + kp) * KV + g;
+  }
+};
+
+struct PagedKV {
+  const int* table;     // [B, pages_per_slot]
+  int pages_per_slot;
+  int P;                // tokens per page
+  int trash;            // num_pages: where an unmapped (negative) entry reads
+  __device__ __forceinline__ long long row(long long b, int kp, int KV, int g) const {
+    int page = table[b * pages_per_slot + kp / P];
+    if (page < 0) page = trash;
+    return (static_cast<long long>(page) * P + kp % P) * KV + g;
+  }
+};
+
 // shared memory: Q tile in fp32 [BR][D+1], then two stages of K and V tiles
 // in the input type, rows padded by 16 bytes against bank conflicts
 template <typename T, int D, int BR>
@@ -81,12 +125,13 @@ constexpr size_t smem_bytes() {
          4ull * BK * (D + 16 / sizeof(T)) * sizeof(T);
 }
 
-// BR query rows per block, TPR lanes per row (a power of two <= 32)
-template <typename T, int D, int BR, int TPR>
+// BR query rows per block, TPR lanes per row (a power of two <= 32); Addr
+// is DenseKV or PagedKV
+template <typename T, int D, int BR, int TPR, typename Addr>
 __global__ void __launch_bounds__(BR * TPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, const int* __restrict__ q_offsets,
-                 const int* __restrict__ q_lens, int Sq, int H, int Sk, int KV, float scale,
+                 const int* __restrict__ q_lens, int Sq, int H, Addr addr, int KV, float scale,
                  int causal, int window, float softcap, int k_len) {
   constexpr int KPT = BK / TPR;             // keys scored per thread per tile
   constexpr int DPT = D / TPR;              // output dims accumulated per thread
@@ -146,7 +191,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int c = e % CPR;
       const int kp = kt + j;
       const bool in = kp < k_end;
-      const long long off = in ? ((b * Sk + kp) * KV + g) * D + c * EPC : 0;
+      // `in` first: no address (and no table entry) past the last visible key
+      const long long off = in ? addr.row(b, kp, KV, g) * D + c * EPC : 0;
       cp_async16(Kst + j * LDK + c * EPC, k + off, in ? 16 : 0);
       cp_async16(Vst + j * LDK + c * EPC, v + off, in ? 16 : 0);
     }
@@ -262,12 +308,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D, int BR, int TPR>
+template <typename T, int D, int BR, int TPR, typename Addr>
 int launch(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
-           const int* q_lens, int B, int Sq, int H, int Sk, int KV, float scale, int causal,
-           int window, float softcap, int k_len, cudaStream_t stream) {
+           const int* q_lens, int B, int Sq, int H, Addr addr, int KV, float scale,
+           int causal, int window, float softcap, int k_len, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D, BR>();
-  auto kern = flash_fwd_kernel<T, D, BR, TPR>;
+  auto kern = flash_fwd_kernel<T, D, BR, TPR, Addr>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -277,24 +323,24 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* q_
   dim3 grid((rows_total + BR - 1) / BR, KV, B);
   kern<<<grid, BR * TPR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), q_offsets, q_lens, Sq, H, Sk, KV, scale, causal, window, softcap,
+      static_cast<T*>(out), q_offsets, q_lens, Sq, H, addr, KV, scale, causal, window, softcap,
       k_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Addr>
 int dispatch_rows(const void* q, const void* k, const void* v, void* out,
-                  const int* q_offsets, const int* q_lens, int B, int Sq, int H, int Sk,
+                  const int* q_offsets, const int* q_lens, int B, int Sq, int H, Addr addr,
                   int KV, float scale, int causal, int window, float softcap, int k_len,
                   cudaStream_t stream) {
   // decode batches carry only rep rows per (b, KV head): 4-row tiles with
   // 16 lanes a row keep every lane busy; prefill chunks take 64-row tiles
   // with 4 lanes a row
   if (Sq * (H / KV) <= 16)
-    return launch<T, D, 4, 16>(q, k, v, out, q_offsets, q_lens, B, Sq, H, Sk, KV, scale,
+    return launch<T, D, 4, 16>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
                                causal, window, softcap, k_len, stream);
-  return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, Sk, KV, scale, causal,
-                             window, softcap, k_len, stream);
+  return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
+                             causal, window, softcap, k_len, stream);
 }
 
 }  // namespace
@@ -312,11 +358,38 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len > Sk || k_len < 0 || D != 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DenseKV addr{Sk};
   if (dtype == 0)
-    return dispatch_rows<float, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, Sk, KV, scale,
+    return dispatch_rows<float, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
                                     causal, window, softcap, k_len, s);
   if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, Sk, KV,
-                                            scale, causal, window, softcap, k_len, s);
+    return dispatch_rows<__nv_bfloat16, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr,
+                                            KV, scale, causal, window, softcap, k_len, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The paged kernel: K/V read through `table` [B, pages_per_slot] (device
+// int32, negative = unmapped: read as the trash page num_pages) from the
+// pools pool_k/pool_v [num_pages_plus_1, P, KV, D]; the logical key axis is
+// pages_per_slot·P long.  Everything else as flash_attention_fwd.  The
+// caller keeps every non-negative entry below num_pages_plus_1.
+extern "C" int flash_attention_paged_fwd(const void* q, const void* pool_k, const void* pool_v,
+                                         const int* table, void* out, const int* q_offsets,
+                                         const int* q_lens, int B, int Sq, int H, int KV, int D,
+                                         int P, int pages_per_slot, int num_pages_plus_1,
+                                         int dtype, float scale, int causal, int window,
+                                         float softcap, void* stream) {
+  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || D != 64 || P <= 0 ||
+      pages_per_slot <= 0 || num_pages_plus_1 <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PagedKV addr{table, pages_per_slot, P, num_pages_plus_1 - 1};
+  const int k_len = pages_per_slot * P;
+  if (dtype == 0)
+    return dispatch_rows<float, 64>(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H, addr,
+                                    KV, scale, causal, window, softcap, k_len, s);
+  if (dtype == 1)
+    return dispatch_rows<__nv_bfloat16, 64>(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H,
+                                            addr, KV, scale, causal, window, softcap, k_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -111,6 +111,14 @@ def load() -> ctypes.CDLL:
         _P,                                # stream
     ]
     lib.flash_attention_fwd.restype = _I
+    lib.flash_attention_paged_fwd.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P,        # q, pool_k, pool_v, table, out, q_offsets, q_lens
+        _I, _I, _I, _I, _I,                # B, Sq, H, KV, D
+        _I, _I, _I, _I,                    # P, pages_per_slot, num_pages_plus_1, dtype
+        _F, _I, _I, _F,                    # scale, causal, window, softcap
+        _P,                                # stream
+    ]
+    lib.flash_attention_paged_fwd.restype = _I
     _lib = lib
     return lib
 

@@ -1,9 +1,10 @@
-"""Dense flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and
-its plain version.
+"""Flash attention, dense and paged: the CUDA kernels of
+``csrc/flash_attention.cu`` and their plain versions.
 
-Replaces the Pallas TPU kernel ``_flash_kernel``
-(``src/repro/kernels/flash_attention/kernel.py``) and its model-layout
-wrapper ``ops.py::flash_attention``.  Layout is the model's: q
+Replaces the Pallas TPU kernels ``_flash_kernel`` and ``_flash_kernel_paged``
+(``src/repro/kernels/flash_attention/kernel.py``) and their model-layout
+wrappers ``ops.py::flash_attention`` and ``ops.py::flash_attention_paged``.
+Layout is the model's: q
 ``[B, Sq, H, D]``, k/v ``[B, Sk, KV, D]`` (GQA: query head h reads KV head
 ``h // (H // KV)``).  Row b's query i sits at absolute position
 ``q_offsets[b] + i``; keys sit at ``0..Sk-1``.  A key is visible when
@@ -12,6 +13,13 @@ wrapper ``ops.py::flash_attention``.  Layout is the model's: q
 (``q_len=0``) and the padding rows ``i >= q_lens[b]`` of a fused mixed
 batch — come out as exact zeros.  Scores are fp32 (optionally tanh
 soft-capped); the output has q's type.
+
+The paged kernel reads K/V from page pools ``[num_pages + 1, P, KV, D]``
+through a page table ``[B, pages_per_slot]``: logical key ``t`` of row b
+lives at page ``table[b, t // P]``, row ``t % P``, and an unmapped entry
+(``-1``) reads the trash page ``num_pages``.  Its logical key axis is
+``pages_per_slot · P`` long; otherwise it is the dense function on the
+gathered view (:func:`paged_view`).
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import torch
 
 from . import _build
 
-# kernel launches since the count was last reset (the CPU path never counts)
+# kernel launches since the counts were last reset (the CPU path never
+# counts): the dense kernel's and the paged kernel's
 launches = 0
+paged_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernel is built for: llama3.2-1b's; the others come with
@@ -110,6 +120,39 @@ def flash_attention_plain(
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
+    """Raise on anything the CUDA kernel does not take: q ``[B, Sq, H, D]``
+    on a card; k/v ``[N, S, KV, D]`` (dense rows or page pools) of q's type
+    and device, contiguous and 16-byte aligned; int32 ``[B]`` offsets and
+    lengths."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{what} takes float32 or bfloat16 q/k/v of one type, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if d not in _HEAD_DIMS or k.ndim != 4 or k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(
+            f"{what} shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} (head_dim must be one of {_HEAD_DIMS})"
+        )
+    if kv == 0 or h % kv:
+        raise ValueError(f"{what}: {h} query heads over {kv} KV heads")
+    for name, t in (("q_offsets", q_offsets), ("q_lens", q_lens)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,) or t.device != q.device:
+            raise TypeError(f"{what}: {name} must be int32 [{b}] on {q.device}")
+    for t in (q, k, v, q_offsets, q_lens):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous inputs")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{what} copies K/V in 16-byte pieces: align k and v to 16 bytes")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: q, k and v must share one device")
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offsets: torch.Tensor, q_lens: Optional[torch.Tensor] = None,
@@ -129,31 +172,10 @@ def flash_attention(
             q, k, v, q_offsets, q_lens, scale=scale, causal=causal,
             window=window, softcap=softcap,
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     sk, kv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash kernel takes float32 or bfloat16 q/k/v of one type, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
-        )
-    if d not in _HEAD_DIMS or tuple(k.shape) != (b, sk, kv, d) or v.shape != k.shape:
-        raise ValueError(
-            f"flash kernel shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} (head_dim must be one of {_HEAD_DIMS})"
-        )
-    if kv == 0 or h % kv:
-        raise ValueError(f"flash kernel: {h} query heads over {kv} KV heads")
-    for name, t in (("q_offsets", q_offsets), ("q_lens", q_lens)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (b,) or t.device != q.device:
-            raise TypeError(f"flash kernel: {name} must be int32 [{b}] on {q.device}")
-    for t in (q, k, v, q_offsets, q_lens):
-        if not t.is_contiguous():
-            raise ValueError("flash kernel needs contiguous inputs")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash kernel copies K/V in 16-byte pieces: align k and v to 16 bytes")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash kernel: q, k and v must share one device")
+    _check_kernel_inputs("flash kernel", q, k, v, q_offsets, q_lens)
+    if k.shape[0] != b:
+        raise ValueError(f"flash kernel: k has {k.shape[0]} rows for {b} query rows")
     out = torch.empty_like(q)
     lib = _build.load()
     with torch.cuda.device(q.device):
@@ -167,4 +189,81 @@ def flash_attention(
         )
     _build.check(err, "flash_attention_fwd")
     launches += 1
+    return out
+
+
+# --------------------------------------------------------------------- paged
+def paged_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Gather the logical ``[B, pages_per_slot · P, KV, D]`` cache view out
+    of a page pool ``[num_pages + 1, P, KV, D]`` through ``table``
+    ``[B, pages_per_slot]``.  Unmapped entries (``-1``) resolve to the trash
+    page ``num_pages``: garbage, which the causal mask never lets a query
+    see (it sits past every row's written span)."""
+    np1, page_tokens = pool.shape[0], pool.shape[1]
+    pages_per_slot = table.shape[1]
+    t = torch.arange(pages_per_slot * page_tokens, device=pool.device)
+    pages = table.to(device=pool.device, dtype=torch.int64)
+    pages = torch.where(pages >= 0, pages, torch.full_like(pages, np1 - 1))
+    src = pages[:, t // page_tokens] * page_tokens + (t % page_tokens)[None, :]
+    return pool.reshape((np1 * page_tokens,) + tuple(pool.shape[2:]))[src]
+
+
+def flash_attention_paged_plain(
+    q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor, table: torch.Tensor,
+    q_offsets: torch.Tensor, q_lens: torch.Tensor,
+    *, scale: float, causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch: :func:`paged_view` of
+    both pools, then :func:`flash_attention_plain` over the
+    ``pages_per_slot · P`` logical keys."""
+    return flash_attention_plain(
+        q, paged_view(pool_k, table), paged_view(pool_v, table), q_offsets, q_lens,
+        scale=scale, causal=causal, window=window, softcap=softcap,
+    )
+
+
+def flash_attention_paged(
+    q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor, table: torch.Tensor,
+    q_offsets: torch.Tensor, q_lens: Optional[torch.Tensor] = None,
+    *, scale: float, causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Paged GQA flash attention: q ``[B, Sq, H, D]``, pools
+    ``[num_pages + 1, P, KV, D]``, ``table`` ``[B, pages_per_slot]`` (``-1``
+    = unmapped, read as the trash page ``num_pages``), ``q_offsets`` /
+    ``q_lens`` ``[B]`` int32 as :func:`flash_attention`.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel, or raises on any
+    input the kernel does not take.  The kernel itself maps negative entries
+    to the trash page at the table read, so the wrapper launches nothing but
+    the kernel; a non-negative entry must name a page of the pool."""
+    global paged_launches
+    b, sq, h, d = q.shape
+    if q_lens is None:
+        q_lens = torch.full((b,), sq, dtype=torch.int32, device=q.device)
+    if q.device.type == "cpu":
+        return flash_attention_paged_plain(
+            q, pool_k, pool_v, table, q_offsets, q_lens, scale=scale, causal=causal,
+            window=window, softcap=softcap,
+        )
+    _check_kernel_inputs("paged flash kernel", q, pool_k, pool_v, q_offsets, q_lens)
+    np1, page_tokens, kv = pool_k.shape[0], pool_k.shape[1], pool_k.shape[2]
+    if table.ndim != 2 or table.shape[0] != b or table.shape[1] == 0:
+        raise ValueError(f"paged flash kernel: table {tuple(table.shape)} for {b} rows")
+    if table.dtype != torch.int32 or table.device != q.device or not table.is_contiguous():
+        table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    pages_per_slot = table.shape[1]
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_paged_fwd(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
+            out.data_ptr(), q_offsets.data_ptr(), q_lens.data_ptr(),
+            b, sq, h, kv, d, page_tokens, pages_per_slot, np1, _DTYPES[q.dtype],
+            float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0),
+            stream,
+        )
+    _build.check(err, "flash_attention_paged_fwd")
+    paged_launches += 1
     return out

@@ -4,11 +4,13 @@ batch engine, on the H100 (or the CPU with ``--device cpu``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --kv-page-tokens 64
 
-It takes the reference's single-engine flags that the dense path reads;
-the knobs of paged KV (``--no-prefix-sharing``, ``--kv-residency``),
-speculation (``--spec-tokens``, ``--acceptance-rate``) and the router
-(``--slo-p99``, ``--dispatch``) come with their slices.  Serving runs at
+It takes the reference's single-engine flags, paged KV's among them
+(``--kv-page-tokens``, ``--no-prefix-sharing``, ``--kv-residency``); the
+knobs of speculation (``--spec-tokens``, ``--acceptance-rate``) and the
+router (``--slo-p99``, ``--dispatch``) come with their slices.  Serving runs at
 full width unless ``--smoke``, with per-layer params (``scan_layers=False``,
 the layout the engine serves from — the reference CLI keeps the config's
 ``scan_layers=True`` there and its executor refuses it), random weights
@@ -20,8 +22,7 @@ closed; after the run the CLI prints the straggler report, every adaptation
 decision and every committed replan.
 
 Not ported yet: ``--replicas`` other than 1 (ROADMAP A8), ``--fault-schedule``
-(A8), ``--draft`` (A7) and a non-zero ``--kv-page-tokens`` (A0) exit with
-an error naming their ROADMAP item.
+(A8) and ``--draft`` (A7) exit with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ _NOT_PORTED = {
     "replicas": "--replicas other than 1 is not yet ported (ROADMAP A8)",
     "fault_schedule": "--fault-schedule is not yet ported (ROADMAP A8)",
     "draft": "--draft is not yet ported (ROADMAP A7)",
-    "kv_page_tokens": "--kv-page-tokens is not yet ported (ROADMAP A0)",
 }
 
 
@@ -76,6 +76,9 @@ def build_engine(args) -> ServingEngine:
         prefill_chunk=args.prefill_chunk or None,
         prompt_len=args.prompt_len,
         fused_prefill=args.fused_prefill,
+        kv_page_tokens=args.kv_page_tokens or None,
+        prefix_sharing=args.prefix_sharing,
+        kv_residency=args.kv_residency,
     )
     return ServingEngine(
         cfg, params, cluster,
@@ -149,8 +152,23 @@ def main(argv=None):
     )
     ap.add_argument(
         "--kv-page-tokens", type=int, default=0, metavar="TOKENS",
-        help="paged KV cache pages of this many tokens: not yet ported (ROADMAP "
-        "A0); only 0, dense rows",
+        help="serve the KV cache as fixed-size pages of this many tokens "
+        "(block-paged attention): slots allocate pages on demand instead of "
+        "dense max-len rows, and the planner's Eq. 5 memory term charges "
+        "pages actually resident (0 = dense per-slot rows, the default)",
+    )
+    ap.add_argument(
+        "--no-prefix-sharing", dest="prefix_sharing", action="store_false",
+        help="disable hash-based prefix sharing across paged requests "
+        "(shared prompt prefixes reuse read-only pages, skip their prefill "
+        "chunks, and copy-on-write at first divergence); only meaningful "
+        "with --kv-page-tokens",
+    )
+    ap.add_argument(
+        "--kv-residency", type=float, default=1.0, metavar="FRACTION",
+        help="expected fraction of max-len a sequence actually occupies — "
+        "scales the planner's paged Eq. 5 memory term (1.0 = worst case; "
+        "only meaningful with --kv-page-tokens)",
     )
     ap.add_argument(
         "--draft", default=None, metavar="ARCH",
@@ -202,7 +220,12 @@ def main(argv=None):
         f"adapt_every={args.adapt_every or 'off'} "
         "prefill_chunk="
         f"{engine.prefill_chunk if engine._chunked_prefill_on() else 'blocking'}"
-        f" step={'fused' if engine._fused_on() else 'interleaved'} kv=dense"
+        f" step={'fused' if engine._fused_on() else 'interleaved'}"
+        + (
+            f" kv=paged({engine.kv_page_tokens}"
+            f"{',shared' if engine.prefix_sharing else ''})"
+            if engine.kv_page_tokens else " kv=dense"
+        )
     )
     t0 = time.perf_counter()
     reqs = [
@@ -217,6 +240,8 @@ def main(argv=None):
     rejected = sum(r.rejected for r in reqs)
     print(f"[serve] {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s)"
           + (f", {rejected} rejected by KV admission" if rejected else ""))
+    if engine._kv_pool is not None:
+        print(f"[serve] kv pool: {engine._kv_pool.stats()}")
     print(f"[serve] straggler report: {engine.straggler_report()['stragglers']}")
 
     # ---- surface the adaptation loop's decisions -------------------------

@@ -15,10 +15,12 @@ and three implementations:
 
 All three take **ragged batches**: a ``(B,)`` ``cache_pos`` gives every row
 its own KV write index and causal mask, and ``q_lens`` gives each row its
-number of valid query rows (the fused mixed prefill/decode batch).
+number of valid query rows (the fused mixed prefill/decode batch), and a
+**paged** cache (page pools plus a page table, ``"table" in kv_cache``).
 
-Unlike the reference, the dense KV cache is written **in place**: the
-returned cache holds the same tensors that were passed in.
+Unlike the reference, the KV cache — dense rows and page pools alike — is
+written **in place**: the returned cache holds the same tensors that were
+passed in.
 """
 
 from __future__ import annotations
@@ -161,28 +163,69 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor, cache_pos, q_lens) -> None
     cache.scatter_(1, idx, torch.where(valid[:, :, None, None], new, old))
 
 
+def _paged_update(pool_k, pool_v, table, k, v, cache_pos, q_lens) -> None:
+    """Scatter this call's new K/V ``[B, Sq, KV, D]`` into the page pools
+    ``[num_pages + 1, P, KV, D]`` through ``table`` ``[B, pages_per_slot]``.
+
+    Token ``i`` of row ``b`` lands at flat pool row
+    ``table[b, pos // P] * P + pos % P`` with ``pos = cache_pos[b] + i``.
+    Tokens outside their row's valid span (``i >= q_lens[b]``), past the
+    slot's logical length (``pos >= pages_per_slot · P``) or on an unmapped
+    entry go to the trash page (the pool's last), so the scatter can never
+    corrupt a real page.  Unlike the reference's functional ``.at[].set``,
+    the pools are written in place, with one ``index_copy_`` on each flat
+    view.  Valid tokens have distinct destinations; duplicate indices occur
+    only inside the trash page, where which copy wins does not matter: no
+    query ever sees the trash page.
+    """
+    b, sq = k.shape[0], k.shape[1]
+    np1, page_tokens = pool_k.shape[0], pool_k.shape[1]
+    pages_per_slot = table.shape[1]
+    dev = pool_k.device
+    cp = torch.as_tensor(cache_pos, device=dev).to(torch.int64).reshape(-1).expand(b)
+    ql = (
+        torch.full((b,), sq, dtype=torch.int64, device=dev)
+        if q_lens is None
+        else q_lens.to(device=dev, dtype=torch.int64)
+    )
+    ii = torch.arange(sq, device=dev, dtype=torch.int64)[None, :]
+    pos = cp[:, None] + ii                                              # [B, Sq]
+    valid = (ii < ql[:, None]) & (pos < pages_per_slot * page_tokens)
+    pidx = torch.clamp(pos // page_tokens, 0, pages_per_slot - 1)
+    page = torch.gather(table.to(device=dev, dtype=torch.int64), 1, pidx)
+    page = torch.where(valid & (page >= 0), page, torch.full_like(page, np1 - 1))
+    dest = (page * page_tokens + pos % page_tokens).reshape(-1)
+    for pool, new in ((pool_k, k), (pool_v, v)):
+        flat = pool.view((np1 * page_tokens,) + tuple(pool.shape[2:]))
+        flat.index_copy_(0, dest, new.to(pool.dtype).reshape((b * sq,) + tuple(pool.shape[2:])))
+
+
+# the naive/chunked read path of a paged cache: the logical [B, L, KV, D]
+# view gathered out of the pool (the kernel's plain version uses the same
+# gather; the kernel itself reads through the table and never builds it)
+_paged_view = fa_kernel.paged_view
+
+
 def multihead_attention(
     p: Params,
     x: torch.Tensor,                  # [B, Sq, D_model]
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,          # [B, Sq]
-    kv_cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v": [B,Smax,KV,hd]}
+    kv_cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v": [B,Smax,KV,hd]}, or
+                                      # paged {"k","v": [num_pages+1,P,KV,hd], "table"}
     cache_pos=None,                   # scalar, or [B] per-row (#valid cache entries)
     layer_window: Optional[int] = None,
     causal: Optional[bool] = None,
     q_lens: Optional[torch.Tensor] = None,  # [B] valid query rows per batch row
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """GQA self-attention with RoPE.  Three cache paths: none; dense KV at a
+    """GQA self-attention with RoPE.  Four cache paths: none; dense KV at a
     scalar ``cache_pos``; dense ragged KV with a ``[B]`` ``cache_pos`` and
-    optional ``q_lens``.  The KV cache is updated in place.  Query rows at
-    or beyond a row's ``q_len`` come out as exact zeros from every impl."""
+    optional ``q_lens``; paged KV (page pools and a ``[B, pages_per_slot]``
+    table).  The KV cache is updated in place.  Query rows at or beyond a
+    row's ``q_len`` come out as exact zeros from every impl."""
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP A11, VLM slice)")
-    if kv_cache is not None and "table" in kv_cache:
-        raise NotImplementedError(
-            "paged KV is not ported yet (ROADMAP A0: the next slice, kernel B2)"
-        )
     hd = cfg.resolved_head_dim
     b, sq, _ = x.shape
     kernels = uses_kernels(cfg)
@@ -200,7 +243,20 @@ def multihead_attention(
     q_pos = positions if ragged else positions[0]
 
     new_cache = None
-    if kv_cache is not None:
+    paged = kv_cache is not None and "table" in kv_cache
+    if paged:
+        pool_k, pool_v, table = kv_cache["k"], kv_cache["v"], kv_cache["table"]
+        cp = cache_pos if cache_pos is not None else 0
+        _paged_update(pool_k, pool_v, table, k, v, cp, q_lens)
+        new_cache = {"k": pool_k, "v": pool_v, "table": table}
+        # logical depth pages_per_slot·P: reads past a row's written span hit
+        # stale or trash data that the causal test against q_pos zeroes
+        k_pos1d = torch.arange(table.shape[1] * pool_k.shape[1], device=x.device)
+        causal = True
+        if not kernels:
+            # naive/chunked: gather the logical view once, then the dense path
+            k, v = _paged_view(pool_k, table), _paged_view(pool_v, table)
+    elif kv_cache is not None:
         kcache, vcache = kv_cache["k"], kv_cache["v"]
         cp = cache_pos if cache_pos is not None else 0
         _write_kv(kcache, k, cp, q_lens if ragged else None)
@@ -227,12 +283,18 @@ def multihead_attention(
             offs = q_pos[:, 0]
         else:
             offs = q_pos[0].expand(b)
-        out = fa_kernel.flash_attention(
-            q.contiguous(), k, v,
-            offs.to(torch.int32).contiguous(),
-            None if q_lens is None else q_lens.to(device=x.device, dtype=torch.int32).contiguous(),
-            scale=scale, causal=causal, window=window, softcap=cfg.attn_softcap,
-        )
+        offs = offs.to(torch.int32).contiguous()
+        lens = None if q_lens is None else q_lens.to(device=x.device, dtype=torch.int32).contiguous()
+        if paged:
+            out = fa_kernel.flash_attention_paged(
+                q.contiguous(), pool_k, pool_v, table, offs, lens,
+                scale=scale, causal=causal, window=window, softcap=cfg.attn_softcap,
+            )
+        else:
+            out = fa_kernel.flash_attention(
+                q.contiguous(), k, v, offs, lens,
+                scale=scale, causal=causal, window=window, softcap=cfg.attn_softcap,
+            )
     elif impl == "chunked" and k.shape[1] > cfg.attn_chunk and sq > 1:
         qg = q.reshape(b, sq, g, n_rep, hd)
         out = _chunked_attention(

@@ -27,6 +27,10 @@ class Model:
     fused_step: Callable[..., Tuple[Any, Any]]
     # (batch, max_len, device=None) -> dense KV cache (default: first card)
     init_cache: Callable[..., Any]
+    # (num_pages, page_tokens, batch=1, device=None) -> paged KV pools
+    # (default: first card); the page table rides into each forward call as
+    # page_table=[B, pages_per_slot]
+    init_paged_cache: Callable[..., Any]
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -47,4 +51,7 @@ def build_model(cfg: ModelConfig) -> Model:
             p, t, c, pos, qlens, cfg, page_table=page_table
         ),
         init_cache=lambda b, s, device=None: transformer.init_cache(cfg, b, s, device),
+        init_paged_cache=lambda num_pages, page_tokens, b=1, device=None: (
+            transformer.init_paged_cache(cfg, b, num_pages, page_tokens, device)
+        ),
     )

@@ -1,14 +1,16 @@
 """Decoder-only transformer stack of the port: the dense family
 (llama3.2-1b, qwen3-14b with qk-norm, gemma-7b with GeGLU and head 256,
 gemma2-27b with local/global windows, softcaps and post-norms), with a
-dense KV cache and the entry points the serving path calls: ``prefill``,
-``prefill_chunked``, ``decode_step`` and ``fused_step``.
+dense or paged KV cache and the entry points the serving path calls:
+``prefill``, ``prefill_chunked``, ``decode_step`` and ``fused_step``.
 
 Parameters hold one dict per layer (``params["layers"]`` is a list), the
 serving layout, whatever ``cfg.scan_layers`` says; ``remat`` is a training
 knob and is ignored.  The KV cache is ``{"layers": {"k", "v"}}`` with one
-``[L, B, max_len, KV, hd]`` tensor each, updated in place.  MoE, SSM,
-hybrid, VLM and enc-dec families raise ``NotImplementedError``.
+``[L, B, max_len, KV, hd]`` tensor each (dense) or one
+``[L, num_pages + 1, P, KV, hd]`` page pool each (paged, with the page
+table passed to every forward as ``page_table``), updated in place.  MoE,
+SSM, hybrid, VLM and enc-dec families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -103,6 +105,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Param
     }
 
 
+def init_paged_cache(
+    cfg: ModelConfig, batch: int, num_pages: int, page_tokens: int, device=None
+) -> Params:
+    """Paged KV cache, zeros, on ``device`` (default: the first card):
+    per-layer page pools ``[num_pages + 1, P, KV, hd]``, the ``+1`` being
+    the trash page that absorbs masked and out-of-range writes.  The
+    per-slot page table is not part of the cache: it is host-owned
+    (``serving.kv_pool``) and rides into each forward as ``page_table``.
+    ``batch`` is unused (pools are shared by every row); it is kept for the
+    reference's signature."""
+    del batch
+    check_family(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_pages + 1, page_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg)
+    return {
+        "layers": {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+        }
+    }
+
+
 # --------------------------------------------------------------------------
 # forward passes
 # --------------------------------------------------------------------------
@@ -128,7 +153,7 @@ def _logits_out(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return softcap(x @ head, cfg.logit_softcap)
 
 
-def _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens=None):
+def _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens=None, page_table=None):
     """Loop over transformer layers; returns (x, caches)."""
     windows = _layer_windows(cfg)
     for i, layer_p in enumerate(params["layers"]):
@@ -137,6 +162,10 @@ def _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens=None):
             if caches
             else None
         )
+        if cache_i is not None and page_table is not None:
+            # paged KV: one [B, pages_per_slot] table shared by every layer
+            # (each layer has its own pool, indexed by the same page ids)
+            cache_i["table"] = page_table
         x, _ = block_apply(
             layer_p, x, cfg,
             positions=positions, window=windows[i],
@@ -156,10 +185,10 @@ def forward(
     q_lens: Optional[torch.Tensor] = None,
     page_table=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (logits [B,S,V], caches)."""
+    """Returns (logits [B,S,V], caches).  ``page_table`` ``[B,
+    pages_per_slot]`` int32 switches KV reads and writes to the page pools
+    of a paged cache."""
     check_family(cfg)
-    if page_table is not None:
-        raise NotImplementedError("paged KV is not ported yet (ROADMAP A0, the next slice)")
     x, positions = _embed_in(params, batch, cfg)
     if cache_pos is not None:
         # a [B] cache_pos carries one depth per row (ragged batches): each
@@ -172,7 +201,11 @@ def forward(
         cache_pos = cp
     if q_lens is not None:
         q_lens = torch.as_tensor(q_lens).to(device=x.device, dtype=torch.int32)
-    x, new_caches = _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens)
+    if page_table is not None:
+        page_table = torch.as_tensor(page_table).to(device=x.device, dtype=torch.int32)
+    x, new_caches = _dense_stack(
+        params, x, cfg, positions, caches, cache_pos, q_lens, page_table
+    )
     return _logits_out(params, x, cfg), new_caches
 
 
@@ -195,10 +228,13 @@ def prefill_chunked(
     *,
     chunk: int = 64,
     caches: Optional[Params] = None,
+    page_table=None,
     start: int = 0,
 ):
     """Chunked prefill: the prompt in ``chunk``-token pieces, each written at
-    its absolute offset — greedy-token-identical to :func:`prefill`."""
+    its absolute offset — greedy-token-identical to :func:`prefill`.
+    ``caches``/``page_table`` continue an existing (possibly paged) cache;
+    ``start`` skips prompt tokens whose KV the cache already holds."""
     b, s = batch["tokens"].shape
     if chunk <= 0:
         raise ValueError(f"chunk must be > 0, got {chunk}")
@@ -214,7 +250,7 @@ def prefill_chunked(
         sub = dict(batch, tokens=batch["tokens"][:, off : off + n])
         logits, caches = forward(
             params, sub, cfg, caches=caches,
-            cache_pos=torch.tensor(off, dtype=torch.int32),
+            cache_pos=torch.tensor(off, dtype=torch.int32), page_table=page_table,
         )
         off += n
     return logits[:, -1], caches

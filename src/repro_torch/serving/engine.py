@@ -70,9 +70,13 @@
   it is recorded, so observation-window hygiene is preserved.
   ``fused=False`` restores the earlier interleaved path (one batch-1 chunk
   between decode steps),
-* **not yet ported** (ROADMAP A0 and A7): paged KV (``kv_page_tokens``) and
-  speculative draft/target serving (``draft_cfg``) raise
-  ``NotImplementedError``.
+* **paged KV with prefix sharing** (``PlanConfig.kv_page_tokens``): per-stage
+  page pools and a host-owned page table (:class:`~.kv_pool.StrictKVPool`);
+  shared page-aligned prompt prefixes are reused by reference and their
+  prefill chunks skipped, a partially matched page is copied at admission,
+  and the table rides into each fused step with one host-to-device copy,
+* **not yet ported** (ROADMAP A7): speculative draft/target serving
+  (``draft_cfg``) raises ``NotImplementedError``.
 
 The port runs on ``torch`` devices (default: every visible CUDA card) and
 keeps the reference's host-side logic — planning, admission, adaptation,
@@ -98,6 +102,7 @@ from repro_torch.core.modelgraph import transformer_graph
 from repro_torch.core.milp import PlacementResult
 from repro_torch.core.placement import PlanConfig, plan, replan
 from .adaptation import AdaptationConfig, AdaptationEvent, DeratePolicy
+from .kv_pool import StrictKVPool
 from .stage_executor import StageExecutor, stages_from_placement, stats_from_times
 
 
@@ -305,13 +310,28 @@ class ServingEngine:
             fused = getattr(self.plan_cfg, "fused_prefill", True)
         self.fused = bool(fused)
 
-        # paged KV cache (PlanConfig.kv_page_tokens): the next slice of the
-        # port (ROADMAP A0) — dense per-slot rows only for now
+        # paged KV cache (PlanConfig.kv_page_tokens): fixed-size page pools
+        # per stage device + a host-owned per-slot page table (KVPool), with
+        # optional hash-based prefix sharing.  Paged serving rides the fused
+        # ragged path — every KV write is span-masked through the table, so
+        # the legacy full-row gather/scatter paths never see pools
         self.kv_page_tokens = getattr(self.plan_cfg, "kv_page_tokens", None)
+        self.prefix_sharing = bool(
+            getattr(self.plan_cfg, "prefix_sharing", True)
+        )
         if self.kv_page_tokens is not None:
-            raise NotImplementedError(
-                "paged KV (kv_page_tokens) is not ported yet (ROADMAP A0)"
-            )
+            self.kv_page_tokens = int(self.kv_page_tokens)
+            if self.kv_page_tokens <= 0:
+                raise ValueError(
+                    f"kv_page_tokens must be positive, got {self.kv_page_tokens}"
+                )
+            if not (self.batching == "ragged" and self.prefill_chunk and self.fused):
+                raise ValueError(
+                    "paged KV (kv_page_tokens) requires ragged batching with "
+                    "chunked + fused prefill"
+                )
+        # prefill chunks a shared-prefix hit let admission skip (whole run)
+        self.prefill_chunks_skipped = 0
 
         # adaptation loop state: the policy owns streaks/hysteresis, the
         # engine owns the applied derate maps and the (derated) cost model.
@@ -472,6 +492,30 @@ class ServingEngine:
         self._prefill_toks: Dict[int, List[int]] = {}
         self._prefill_done: Dict[int, int] = {}
         self._prefill_rr = 0
+        # ...and so is the page pool: every mapping pointed into the old
+        # executor's device pools (re-prefill repopulates — and re-registers
+        # shared prefixes — from scratch).  The port's pool admits exactly
+        # what it can map (StrictKVPool, ROADMAP C).
+        self._kv_pool = (
+            StrictKVPool(
+                self.slots,
+                self.max_len,
+                self.kv_page_tokens,
+                prefix_sharing=self.prefix_sharing,
+            )
+            if self.kv_page_tokens is not None
+            else None
+        )
+        # the table's host buffer: pinned when a stage is on a card, so the
+        # one host-to-device copy per step is asynchronous
+        self._table_host = None
+        if self._kv_pool is not None:
+            self._table_host = torch.empty(
+                self._kv_pool.table.shape, dtype=torch.int32,
+                pin_memory=any(
+                    torch.device(st.device).type == "cuda" for st in stages
+                ),
+            )
         self._pred_stage_s = self._predict_stage_times()
         # per-chunk predictions only make sense when prefill actually runs
         # in chunks — blocking/lockstep prefill forwards span whole prompts
@@ -596,9 +640,20 @@ class ServingEngine:
                     if pos_set and pos_set != {depth}:
                         break
                 toks_head = list(head.prompt) + list(head.out_tokens)
-                if n_active > 0 and not self._admission_ok(n_active + 1):
+                # paged: the sequence's pages (net of reusable shared-prefix
+                # pages) must be obtainable from the pool — free now or
+                # LRU-evictable — on top of the planner-level Eq. 5 check
+                total_head = min(
+                    len(head.prompt) + int(head.max_new_tokens), self.max_len
+                )
+                pool_ok = self._kv_pool is None or self._kv_pool.can_admit(
+                    toks_head, total_head
+                )
+                if (n_active > 0 and not self._admission_ok(n_active + 1)) or (
+                    n_active > 0 and not pool_ok
+                ):
                     # one more resident KV copy would overflow a planned
-                    # device. (With zero active requests we
+                    # device (or the page pool). (With zero active requests we
                     # admit regardless: if even one sequence does not fit,
                     # holding it forever is a livelock, not protection —
                     # serve best-effort.)
@@ -614,6 +669,7 @@ class ServingEngine:
                         continue
                     break  # "queue": retry when a slot's KV frees
                 req = self.queue.pop(qi)
+                was_started = req.started
                 req.started = True
                 self.active[slot] = req
                 # prompt + out_tokens so a request re-queued by a hot-swap
@@ -625,9 +681,34 @@ class ServingEngine:
                     # (between decode batches) by _advance_prefill, directly
                     # into this slot's cache row
                     self._ensure_caches()
+                    reuse = 0
+                    if self._kv_pool is not None:
+                        # map pages; shared-prefix hits skip their prefill
+                        # chunks (reuse), a partially matched page is COW'd
+                        # on-device before any write can land in it
+                        try:
+                            reuse, copies = self._kv_pool.alloc_sequence(
+                                slot, toks_list, total_head
+                            )
+                        except RuntimeError:
+                            # the pool rolled the mapping back: the request
+                            # goes back to the queue front, its slot freed
+                            # (the reference loses it from `active` here)
+                            self.active[slot] = None
+                            req.started = was_started
+                            self.queue.insert(qi, req)
+                            break
+                        if copies:
+                            self.caches = self.executor.copy_pages(
+                                self.caches, copies
+                            )
+                        n, c = len(toks_list), self.prefill_chunk
+                        self.prefill_chunks_skipped += (n + c - 1) // c - (
+                            n - reuse + c - 1
+                        ) // c
                     self._prefill_toks[slot] = toks_list
-                    self._prefill_done[slot] = 0
-                    self.slot_pos[slot] = 0
+                    self._prefill_done[slot] = reuse
+                    self.slot_pos[slot] = reuse
                     continue
                 # blocking whole-prompt prefill (lockstep baseline, or
                 # prefill_chunk=None): batch-1 prefill into the slot's row
@@ -643,10 +724,16 @@ class ServingEngine:
                 self._maybe_retire(slot, nxt)
 
     def _ensure_caches(self):
-        """Lazily allocate the dense ``(slots, max_len)`` device caches."""
+        """Lazily allocate device caches: paged pools (+ trash page) when a
+        KV pool is configured, dense ``(slots, max_len)`` rows otherwise."""
         if self.caches is not None:
             return
-        self.caches = self.executor.init_caches(self.slots, self.max_len)
+        if self._kv_pool is not None:
+            self.caches = self.executor.init_paged_caches(
+                self._kv_pool.num_pages, self._kv_pool.page_tokens
+            )
+        else:
+            self.caches = self.executor.init_caches(self.slots, self.max_len)
 
     def _chunked_prefill_on(self) -> bool:
         """Interleaved chunked prefill is a ragged-batching feature: the
@@ -775,6 +862,10 @@ class ServingEngine:
             # decode then writes (and attends) at its row's position 0,
             # which the next admission's full-row prefill overwrites anyway
             self.slot_pos[slot] = 0
+            if self._kv_pool is not None:
+                # deref the slot's pages; registered prefix pages park in
+                # the LRU ring for future sharers, private pages free
+                self._kv_pool.free_slot(slot)
             self._record_finished(req)
             return True
         return False
@@ -873,6 +964,15 @@ class ServingEngine:
             fracs.append(d / (d + p) if d + p > 0 else 1.0)
         return fracs
 
+    def _page_table(self) -> Optional[torch.Tensor]:
+        """This step's page table (trash-clamped) in the host buffer, or
+        None for dense rows; the executor copies it to each stage's device
+        once."""
+        if self._kv_pool is None:
+            return None
+        self._table_host.copy_(torch.from_numpy(self._kv_pool.table_array()))
+        return self._table_host
+
     def _step_fused(self) -> int:
         """One FUSED engine iteration: decode-ready slots, mid-prefill
         slots, and idle slots ride one ``[slots, S]`` forward with per-row
@@ -915,6 +1015,7 @@ class ServingEngine:
             kind="fused",
             q_lens=torch.from_numpy(q_lens),
             fused_decode_frac=self._fused_decode_frac(len(pf_slots)),
+            page_table=self._page_table(),
         )
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # [slots, S]
         for i in idx:
@@ -931,6 +1032,11 @@ class ServingEngine:
                 del self._prefill_toks[i]
                 del self._prefill_done[i]
                 req = self.active[i]
+                if self._kv_pool is not None:
+                    # prompt KV is resident: register its page-aligned
+                    # prefix so later requests can share it (BEFORE any
+                    # retirement — the pages then park in the LRU, reusable)
+                    self._kv_pool.commit_prefix(i, req.prompt)
                 # next token from the last REAL prompt row of the chunk
                 tok = int(nxt[i, n - 1])
                 req.out_tokens.append(tok)
@@ -1544,8 +1650,12 @@ class ServingEngine:
             # before any drain call collected them — nonzero means results
             # were lost to the cap, not silently (satellite: visible loss)
             "overflow": {"unclaimed_finished": self._unclaimed_overflow},
-            # paged-KV pool health and speculative acceptance: always None
-            # until those paths are ported (ROADMAP A0, A7)
-            "kv": None,
+            # paged-KV pool health (None when serving dense rows): page
+            # residency plus the sharing counters — prefix hits, COW
+            # copies, LRU evictions — so cache behavior is operator-visible
+            "kv": (
+                self._kv_pool.stats() if self._kv_pool is not None else None
+            ),
+            # speculative acceptance: None until that path is ported (A7)
             "speculation": None,
         }

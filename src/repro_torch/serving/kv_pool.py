@@ -42,7 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["KVPool", "pages_needed"]
+__all__ = ["KVPool", "StrictKVPool", "pages_needed"]
 
 
 def pages_needed(tokens: int, page_tokens: int) -> int:
@@ -385,3 +385,67 @@ class KVPool:
             "evicted": self.stats_evicted,
             "registered": len(self._registry),
         }
+
+
+# --------------------------------------------------------------------------
+# the port's pool: the class above stays a verbatim copy of the reference's;
+# the two admission faults it carries are repaired here
+# --------------------------------------------------------------------------
+
+
+class StrictKVPool(KVPool):
+    """:class:`KVPool` whose :meth:`can_admit` is exact, and whose
+    copy-on-write never evicts its own source while another page can be had.
+
+    * ``KVPool.can_admit`` counts every LRU page as obtainable, including
+      the refcount-0 prefix pages the admission itself takes off the LRU
+      ring to reuse, and bills ``total_len`` pages where
+      :meth:`alloc_sequence` maps ``max(total_len, len(tokens))``.  It can
+      then admit what ``alloc_sequence`` cannot map ("page pool exhausted").
+      Here every page the admission takes — the COW copy and the private
+      pages — is billed against the free pages plus the LRU pages it does
+      not reuse, which is exactly what ``alloc_sequence`` can obtain.
+    * In the COW branch, ``_take_page`` evicts the LRU-oldest page, which
+      can be the page ``_match_child`` just picked as the copy's source.
+      Here the source moves to the LRU's young end for the admission, so it
+      is evicted only when no other page is obtainable; the slot then owns
+      the source page itself, whose rows below the reused length already
+      hold the matched prefix, and the copy pair is an identity.
+    """
+
+    _cow_source: Optional[int] = None
+
+    def can_admit(self, tokens: Sequence[int], total_len: int) -> bool:
+        total_len = min(int(total_len), self.max_len)
+        P = self.page_tokens
+        reuse = min(self.lookup_prefix(tokens), max(len(tokens) - 1, 0))
+        n_full = reuse // P
+        need = pages_needed(max(total_len, len(tokens)), P) - n_full
+        # refcount-0 pages this admission reuses leave the LRU ring as
+        # references, not as takes: they are not obtainable for the rest
+        held = 0
+        prev: Optional[bytes] = None
+        for i in range(n_full):
+            prev = _chain_hash(prev, tokens[i * P : (i + 1) * P])
+            if self.refcount[self._registry[prev]] == 0:
+                held += 1
+        return need <= self.available_pages() - held
+
+    def alloc_sequence(
+        self, slot: int, tokens: Sequence[int], total_len: int
+    ) -> Tuple[int, List[Tuple[int, int]]]:
+        try:
+            return super().alloc_sequence(slot, tokens, total_len)
+        finally:
+            self._cow_source = None
+
+    def _match_child(self, prev: Optional[bytes], tail: Sequence[int]) -> int:
+        src = super()._match_child(prev, tail)
+        self._cow_source = src
+        return src
+
+    def _take_page(self) -> int:
+        src = self._cow_source
+        if src is not None and src in self._lru:
+            self._lru.move_to_end(src)
+        return super()._take_page()

@@ -12,7 +12,9 @@ is **updated in place** by :meth:`StageExecutor.forward` (the returned
 caches hold the same tensors; the ``(x, new_caches)`` return is kept for
 parity with the reference).  Decode accepts a ``(B,)`` ``cache_pos``
 vector — ragged batches where every slot row sits at its own depth —
-carried across stage boundaries unchanged.
+carried across stage boundaries unchanged.  Paged KV: each stage holds
+page pools (:meth:`StageExecutor.init_paged_caches`) and the host-owned
+page table rides into :meth:`StageExecutor.forward` as ``page_table``.
 """
 
 from __future__ import annotations
@@ -128,7 +130,7 @@ class StageExecutor:
         windows = [self._windows[i] for i in st.layer_ids]
         kernels = uses_kernels(cfg)
 
-        def run(sp, x, positions, caches, cache_pos, q_lens=None):
+        def run(sp, x, positions, caches, cache_pos, q_lens=None, table=None):
             new_caches = []
             if st.first:
                 x = sp["embed"][x.to(torch.int64)]
@@ -136,6 +138,10 @@ class StageExecutor:
                     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
             for j, layer_p in enumerate(sp["layers"]):
                 cache_j = caches[j] if caches is not None else None
+                if cache_j is not None and table is not None:
+                    # paged KV: one [B, pages_per_slot] table shared by every
+                    # layer of every stage; pools stay per-layer per-stage
+                    cache_j = dict(cache_j, table=table)
                 x, nc = transformer.block_apply(
                     layer_p, x, cfg,
                     positions=positions,
@@ -144,6 +150,8 @@ class StageExecutor:
                     cache_pos=cache_pos,
                     q_lens=q_lens,
                 )
+                if nc is not None and "table" in nc:
+                    nc = {"k": nc["k"], "v": nc["v"]}
                 new_caches.append(nc)
             if st.last:
                 x = rmsnorm(x, sp["ln_final"], kernel=kernels)
@@ -169,6 +177,44 @@ class StageExecutor:
             for st in self.stages
         ]
 
+    def init_paged_caches(self, num_pages: int, page_tokens: int):
+        """Paged-KV pools: per stage, per layer, ``[num_pages+1, P, KV, hd]``
+        zeros on that stage's device (the +1 is the reserved trash page).
+        The page table is host-owned (``serving.kv_pool``) and rides into
+        :meth:`forward` as ``page_table`` each step."""
+        hd = self.cfg.resolved_head_dim
+        dt = transformer.torch_dtype(self.cfg)
+        shape = (num_pages + 1, page_tokens, self.cfg.n_kv_heads, hd)
+        return [
+            [
+                {
+                    "k": torch.zeros(shape, dtype=dt, device=st.device),
+                    "v": torch.zeros(shape, dtype=dt, device=st.device),
+                }
+                for _ in st.layer_ids
+            ]
+            for st in self.stages
+        ]
+
+    def copy_pages(self, caches, pairs):
+        """Copy-on-write support: copy pages ``(src, dst)`` in every stage's
+        every layer pool (K and V), in place with ``index_copy_``.  Called at
+        admission when a prompt diverges inside a shared prefix page, before
+        any write can land in ``dst``; the table update itself is host-side
+        (``KVPool``).  Returns ``caches`` (the same tensors)."""
+        if not pairs:
+            return caches
+        for st_caches in caches:
+            if not st_caches:
+                continue
+            dev = st_caches[0]["k"].device
+            src = torch.tensor([s for s, _ in pairs], dtype=torch.int64, device=dev)
+            dst = torch.tensor([d for _, d in pairs], dtype=torch.int64, device=dev)
+            for c in st_caches:
+                for key in ("k", "v"):
+                    c[key].index_copy_(0, dst, c[key].index_select(0, src))
+        return caches
+
     def forward(
         self,
         tokens,                       # [B, S] int (prefill) or [B, 1] (decode)
@@ -187,13 +233,14 @@ class StageExecutor:
                                       # forward records a ("decode", dt·f) AND
                                       # a ("prefill", dt·(1−f)) sample so the
                                       # calibrator's windows stay clean
-        page_table=None,              # paged KV: not ported yet
+        page_table=None,              # [B, pages_per_slot] int32 — paged-KV
+                                      # table (caches hold page pools)
     ):
         """Run every stage in order; returns ``(logits, caches)``.  The
         caches are updated in place.  Each stage's wall time is recorded
-        after ``torch.cuda.synchronize`` on its device."""
-        if page_table is not None:
-            raise NotImplementedError("paged KV is not ported yet (ROADMAP A0, the next slice)")
+        after ``torch.cuda.synchronize`` on its device.  The page table
+        goes to each stage's device once per call, not once per layer (from
+        pinned host memory it is an asynchronous copy)."""
         tokens = torch.as_tensor(tokens)
         b, s = tokens.shape
         if kind is None:
@@ -210,6 +257,7 @@ class StageExecutor:
         )
         positions = positions.expand(b, s)
         ql = None if q_lens is None else torch.as_tensor(q_lens).to(torch.int32)
+        tbl = None if page_table is None else torch.as_tensor(page_table).to(torch.int32)
         x = tokens
         new_caches = []
         on_dev: Dict[Any, tuple] = {}
@@ -220,13 +268,14 @@ class StageExecutor:
                 on_dev[st.device] = (
                     positions.to(st.device), cp.to(st.device),
                     None if ql is None else ql.to(st.device),
+                    None if tbl is None else tbl.to(st.device, non_blocking=True),
                 )
-            pos_d, cp_d, ql_d = on_dev[st.device]
+            pos_d, cp_d, ql_d, tbl_d = on_dev[st.device]
             fn = self._fns.get(si)
             if fn is None:
                 fn = self._fns[si] = self._stage_fn(si)
             st_caches = caches[si] if caches is not None else None
-            x, nc = fn(self.stage_params[si], x, pos_d, st_caches, cp_d, ql_d)
+            x, nc = fn(self.stage_params[si], x, pos_d, st_caches, cp_d, ql_d, tbl_d)
             if torch.device(st.device).type == "cuda":
                 torch.cuda.synchronize(st.device)
             dt = time.perf_counter() - t0

@@ -1,6 +1,7 @@
 """The port's kernels: plain versions against the reference's Pallas kernels
 (interpret mode on the CPU), the CPU dispatch of the wrappers, and — on a
-CUDA card only (``-m gpu``) — each CUDA kernel against its plain version.
+CUDA card only (``-m gpu``) — each CUDA kernel against its plain version
+(the paged flash kernel's CPU parity is in ``test_torch_paged.py``).
 
 Tolerances: fp32 2e-4 and bf16 3e-2 against the Pallas kernels (as
 ``test_kernels.py``); 2e-5 against the ragged-row oracle (as
@@ -271,3 +272,89 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     offs = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv, kv, offs, scale=1.0)
+
+
+def _card_paged_case(device, dtype, *, P, depths, q_lens, sq, max_len=2048, h=32, kv=8,
+                     d=64, shared=2, seed=0):
+    """Pools and a page table as the engine builds them: every page a row's
+    visible keys need is mapped (rows 0 and 1 share their first ``shared``
+    pages), the rest ``-1``; the trash page holds large finite garbage."""
+    rng = np.random.default_rng(seed)
+    b = len(depths)
+    pps = -(-max_len // P)
+    need = [-(-(dp + n) // P) for dp, n in zip(depths, q_lens)]
+    num_pages = sum(need) + 3
+    ids = iter(rng.permutation(num_pages).tolist())
+    table = np.full((b, pps), -1, np.int32)
+    for bi, n in enumerate(need):
+        for j in range(n):
+            table[bi, j] = table[0, j] if bi == 1 and j < shared and table[0, j] >= 0 else next(ids)
+    g = torch.Generator(device=device).manual_seed(seed)
+    pool_k = torch.randn(num_pages + 1, P, kv, d, generator=g, device=device).to(dtype)
+    pool_v = torch.randn(num_pages + 1, P, kv, d, generator=g, device=device).to(dtype)
+    pool_k[-1] = 1e4
+    pool_v[-1] = -1e4
+    q = torch.randn(b, sq, h, d, generator=g, device=device).to(dtype)
+    return (q, pool_k, pool_v, torch.from_numpy(table).to(device),
+            torch.tensor(depths, dtype=torch.int32, device=device),
+            torch.tensor(q_lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [16, 64, 48])
+@pytest.mark.parametrize("window,softcap", [(None, None), (64, 50.0)])
+def test_flash_paged_kernel_on_card(cuda_device, dtype, P, window, softcap):
+    """The paged kernel against its plain version and against the dense
+    kernel on the gathered view, with shared pages, unmapped entries, a
+    garbage trash page and q_lens 0/1/17/64 at random depths (P = 48 does
+    not divide the kernel's 64-key tile)."""
+    q_lens = [64, 1, 0, 17, 64, 1, 17, 0]
+    rng = np.random.default_rng(P)
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in q_lens]
+    depths[1] = depths[0] + 64                     # row 1 reads row 0's shared pages
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, dtype, P=P, depths=depths, q_lens=q_lens, sq=64)
+    kw = dict(scale=0.125, causal=True, window=window, softcap=softcap)
+    before = fa.paged_launches
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+    assert fa.paged_launches == before + 1
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, **kw)
+    k, v = fa.paged_view(pk, table), fa.paged_view(pv, table)
+    dense = fa.flash_attention(q, k.contiguous(), v.contiguous(), offs, lens, **kw)
+    pk[-1] = 0
+    pv[-1] = 0
+    clean = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+    assert torch.equal(out, dense)       # one function, one order of sums
+    assert torch.equal(out, clean)       # the trash page is never read
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_paged_kernel_decode_rows_on_card(cuda_device, dtype):
+    depths = [0, 5, 63, 64, 700, 1500, 2000, 2047]
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, dtype, P=64, depths=depths, q_lens=[1] * 8, sq=1)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, scale=0.125)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, scale=0.125)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+
+
+@pytest.mark.gpu
+def test_paged_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device):
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, torch.float32, P=16, depths=[0, 16], q_lens=[5, 1], sq=5, h=4, kv=2)
+    with pytest.raises(TypeError):
+        fa.flash_attention_paged(q, pk.to(torch.bfloat16), pv, table, offs, lens, scale=1.0)
+    with pytest.raises(ValueError):
+        fa.flash_attention_paged(q, pk, pv, table[:1], offs, lens, scale=1.0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_paged(q[..., :32].contiguous(), pk[..., :32].contiguous(),
+                                 pv[..., :32].contiguous(), table, offs, lens, scale=1.0)
+    with pytest.raises(TypeError):
+        fa.flash_attention_paged(q, pk, pv, table, offs.long(), lens, scale=1.0)

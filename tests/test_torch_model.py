@@ -181,7 +181,8 @@ def test_params_from_jax_splits_stacked_layers():
 
 @pytest.mark.parametrize(
     "entry", ["init_params", "params_from_jax", "Model.init", "Model.init_cache",
-              "transformer.init_cache"],
+              "transformer.init_cache", "Model.init_paged_cache",
+              "transformer.init_paged_cache"],
 )
 def test_entry_points_default_to_the_card(entry):
     """Left without a device, every entry point builds on the first card,
@@ -194,6 +195,10 @@ def test_entry_points_default_to_the_card(entry):
         "Model.init": lambda: t_build_model(cfg).init(gen)["embed"],
         "Model.init_cache": lambda: t_build_model(cfg).init_cache(1, 8)["layers"]["k"],
         "transformer.init_cache": lambda: t_transformer.init_cache(cfg, 1, 8)["layers"]["k"],
+        "Model.init_paged_cache": lambda: t_build_model(cfg).init_paged_cache(4, 8)["layers"]["k"],
+        "transformer.init_paged_cache": (
+            lambda: t_transformer.init_paged_cache(cfg, 1, 4, 8)["layers"]["k"]
+        ),
     }
     if torch.cuda.is_available():
         assert calls[entry]().device.type == "cuda"

@@ -169,9 +169,6 @@ def test_engine_refuses_unported_paths(models):
     _, tcfg, _, tp = models
     with pytest.raises(NotImplementedError):
         TServingEngine(tcfg, tp, h100_cluster(1), devices=CPU,
-                       plan_cfg=TPlanConfig(method="etf", kv_page_tokens=8))
-    with pytest.raises(NotImplementedError):
-        TServingEngine(tcfg, tp, h100_cluster(1), devices=CPU,
                        plan_cfg=TPlanConfig(method="etf"), draft_cfg=tcfg, draft_params=tp)
 
 
@@ -195,8 +192,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--replicas", "2"], ["--draft", "llama3.2-1b"], ["--kv-page-tokens", "16"],
-             ["--fault-schedule", "x.json"]],
+    "flag", [["--replicas", "2"], ["--draft", "llama3.2-1b"], ["--fault-schedule", "x.json"]],
 )
 def test_serve_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
