@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
    rounding apart); the paged flash kernel at pages of 16, 64 and 48
    tokens, with shared pages, unmapped entries and a trash page of large
    finite garbage that must change no output, and against the dense
-   kernel on the gathered view of the same pools;
+   kernel on the gathered view of the same pools; both flash kernels at
+   qwen2-moe's head dim 128 (16 query and 16 KV heads); the grouped GEMM
+   at qwen2-moe's gate/up and down shapes under decode and chunk routing,
+   and on edge groupings;
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
    ``repro_torch.launch.serve.main`` with its defaults, then through
    ``ServingEngine`` with 16 requests of 100–600 prompt tokens, 8 slots,
@@ -33,12 +36,25 @@ Phases (any failure exits non-zero; nothing is caught):
    max_len 2048, 32 new tokens each, served three times, beside a dense
    engine on the same requests) — the paged kernel must have launched and
    pages must have been reused;
-7. time each kernel, its plain version and one PyTorch library call for
+7. MoE: full-width qwen2-moe-a2.7b (24 layers, 60 routed experts padded
+   to 64, top-4, bf16, random weights from a seed) — parity (2 full-width
+   layers in fp32 with kernels and with plain versions give identical
+   greedy tokens; the bf16 full-depth logits of one prefill are compared),
+   then phases 4 and 6 for it: the CLI with its defaults and with
+   ``--kv-page-tokens 64``, one dense ``ServingEngine`` serving the 16
+   requests three times and a profiler trace of 16 of its steps, one paged
+   engine on the shared-prefix requests three times beside a dense one.
+   Every forward must launch the grouped-GEMM kernel 3 × 24 times, and the
+   head-dim-128 flash kernel must have launched;
+8. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
    yardstick gather + SDPA (no single PyTorch call reads through a page
-   table).
+   table); the flash kernels at qwen2-moe's head dim 128 too; the grouped
+   GEMM at qwen2-moe's decode and chunk routings, beside
+   ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
+   ``torch.matmul`` loop, labelled so).
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -48,6 +64,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import platform
@@ -72,6 +89,7 @@ from repro_torch.core.devices import h100_cluster  # noqa: E402
 from repro_torch.core.placement import PlanConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -99,11 +117,12 @@ def reset_counts() -> None:
     fa.launches = 0
     fa.paged_launches = 0
     rn.launches = 0
+    gg.launches = 0
 
 
 def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
-            "rmsnorm": rn.launches}
+            "rmsnorm": rn.launches, "grouped_gemm": gg.launches}
 
 
 def require(got: dict, names, what: str) -> None:
@@ -113,8 +132,31 @@ def require(got: dict, names, what: str) -> None:
         raise AssertionError(f"{what}: a kernel of the path never launched: {got}")
 
 
+LLAMA = "llama3.2-1b"
+MOE = "qwen2-moe-a2.7b"
+# the kernels each path must launch: dense or paged KV, plus the grouped
+# GEMM for an MoE model
 DENSE_PATH = ("flash_attention", "rmsnorm")
 PAGED_PATH = ("flash_attention_paged", "rmsnorm")
+
+
+def path(arch: str, paged: bool) -> tuple:
+    kernels = PAGED_PATH if paged else DENSE_PATH
+    return kernels + (("grouped_gemm",) if arch == MOE else ())
+
+
+def require_per_forward(got: dict, cfg, what: str) -> None:
+    """An MoE run must launch the grouped GEMM 3 times a layer in every
+    forward: each forward launches 2 RMSNorms a layer plus the final one,
+    so the counts must be whole multiples of one forward's."""
+    if not cfg.n_experts:
+        return
+    norms = 2 * cfg.n_layers + 1
+    fwd = got["rmsnorm"] // norms
+    if not (fwd > 0 and got["rmsnorm"] == fwd * norms
+            and got["grouped_gemm"] == 3 * cfg.n_layers * fwd):
+        raise AssertionError(f"{what}: grouped GEMM launches are not 3 x {cfg.n_layers} per "
+                             f"forward: {got}")
 
 
 def within(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -141,16 +183,22 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
     )
 
 
-def flash_cases(dev, dtype):
+# attention heads (query, KV) and head dim of each served model
+HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128)}
+
+
+def flash_cases(dev, dtype, arch=LLAMA):
     rng = np.random.default_rng(SEED)
     decode = rng.integers(0, 2048, size=8).tolist()
     chunk_lens = [64, 1, 0, 64, 17, 1, 64, 0]
     chunk_depths = [int(rng.integers(0, 2048 - n + 1)) for n in chunk_lens]
+    hk = HEADS[arch]
     return {
-        "decode": (flash_inputs(dev, dtype, sq=1, depths=decode, q_lens=[1] * 8), {}),
-        "fused_chunk": (flash_inputs(dev, dtype, sq=64, depths=chunk_depths, q_lens=chunk_lens), {}),
+        "decode": (flash_inputs(dev, dtype, sq=1, depths=decode, q_lens=[1] * 8, **hk), {}),
+        "fused_chunk": (flash_inputs(dev, dtype, sq=64, depths=chunk_depths, q_lens=chunk_lens,
+                                     **hk), {}),
         "fused_chunk_window_softcap": (
-            flash_inputs(dev, dtype, sq=64, depths=chunk_depths, q_lens=chunk_lens),
+            flash_inputs(dev, dtype, sq=64, depths=chunk_depths, q_lens=chunk_lens, **hk),
             {"window": 64, "softcap": 50.0},
         ),
     }
@@ -199,25 +247,77 @@ def paged_inputs(dev, dtype, *, P, depths, q_lens, sq, max_len=2048, h=32, kv=8,
     )
 
 
-def paged_cases(dev, dtype):
+def paged_cases(dev, dtype, arch=LLAMA):
     """Decode and fused-chunk rows at random depths (q_len 0, 1, 17, 64),
     row 1 reading row 0's shared pages; pages of 16, 64 and 48 tokens (48
-    does not divide the kernel's 64-key tile); window and softcap."""
+    does not divide the kernel's 64-key tile); window and softcap.  For the
+    MoE model's head dim, pages of 64 only."""
     rng = np.random.default_rng(SEED)
     decode = rng.integers(0, 2048, size=8).tolist()
     lens = [64, 1, 0, 64, 17, 1, 64, 0]
     depths = [int(rng.integers(0, 2048 - n + 1)) for n in lens]
     depths[1] = depths[0] + 64
+    hk = HEADS[arch]
     cases = {}
-    for P in (16, 64, 48):
+    for P in (16, 64, 48) if arch == LLAMA else (64,):
         cases[f"fused_chunk_P{P}"] = (
-            paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=64), {})
+            paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=64, **hk), {})
     cases["decode_P64"] = (
-        paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1), {})
-    cases["fused_chunk_P64_window_softcap"] = (
-        paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64),
-        {"window": 64, "softcap": 50.0})
+        paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1, **hk), {})
+    if arch == LLAMA:
+        cases["fused_chunk_P64_window_softcap"] = (
+            paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64, **hk),
+            {"window": 64, "softcap": 50.0})
     return cases
+
+
+# qwen2-moe-a2.7b's routed experts: 60 real of 64, top-4, d_model 2048,
+# expert width 1408; gate/up multiply [M, 2048] by [64, 2048, 1408], down
+# [M, 1408] by [64, 1408, 2048]
+GG_SHAPES = {"gate_up": (2048, 1408), "down": (1408, 2048)}
+GG_ROUTING = {"decode": 8, "chunk": 512}        # tokens routed: 8 slots x 1, 8 x 64
+
+
+def routed_sizes(tokens, *, top_k=4, e_real=60, e_pad=64, seed=SEED):
+    """Group sizes of ``tokens`` tokens each routed to ``top_k`` distinct
+    experts of ``e_real`` (uniformly, numpy seed); padding experts empty."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(e_real, top_k, replace=False) for _ in range(tokens)])
+    return np.bincount(ids.ravel(), minlength=e_pad).tolist()
+
+
+def gg_inputs(dev, dtype, *, sizes, k, n, seed=SEED):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = int(sum(sizes))
+    return dict(
+        x=torch.randn(m, k, generator=g, device=dev).to(dtype),
+        w=(torch.randn(len(sizes), k, n, generator=g, device=dev) * k ** -0.5).to(dtype),
+        group_sizes=torch.tensor(sizes, dtype=torch.int32, device=dev),
+    )
+
+
+def gg_cases(dev, dtype):
+    """The four main-path shapes, then edge groupings at the gate/up
+    shape: every row in one expert, the last expert only, groups of one
+    row, and a ragged M (not a multiple of the kernel's 64-row tile)."""
+    cases = {}
+    for (proj, (k, n)), (routing, tokens) in (
+        (a, b) for a in GG_SHAPES.items() for b in GG_ROUTING.items()
+    ):
+        cases[f"{proj}_{routing}"] = gg_inputs(dev, dtype, sizes=routed_sizes(tokens), k=k, n=n)
+    k, n = GG_SHAPES["gate_up"]
+    for name, sizes in (
+        ("one_expert", [300] + [0] * 63),
+        ("last_expert", [0] * 63 + [77]),
+        ("rows_of_one", [1, 0] * 32),
+        ("ragged_m", [65, 0, 1, 130, 3] + [0] * 59),
+    ):
+        cases[name] = gg_inputs(dev, dtype, sizes=sizes, k=k, n=n)
+    return cases
+
+
+def run_gg(fn, inp):
+    return fn(inp["x"], inp["w"], inp["group_sizes"])
 
 
 def run_paged(fn, inp, extra):
@@ -295,12 +395,44 @@ def phase_check(dev) -> dict:
         err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
         errs[("rmsnorm", "rows512", dtype)] = err
         log(f"[check] rmsnorm [512, 2048] {str(dtype)[6:]}: max abs err {err:.3e}")
+        # qwen2-moe's attention: head dim 128, no GQA
+        for case, (inp, extra) in flash_cases(dev, dtype, MOE).items():
+            out = run_flash(fa.flash_attention, inp, extra)
+            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash d128 {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention", "d128_" + case, dtype)] = err
+            log(f"[check] flash_attention d128 {case} {str(dtype)[6:]}: max abs err {err:.3e}")
+        for case, (inp, extra) in paged_cases(dev, dtype, MOE).items():
+            out = run_paged(fa.flash_attention_paged, inp, extra)
+            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
+            dense = run_flash(fa.flash_attention, gathered(inp), extra)
+            errs[("flash_attention_paged", "d128_" + case, dtype)] = err
+            log(f"[check] flash_attention_paged d128 {case} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}; vs the dense kernel on the gathered view: max abs diff "
+                f"{(out.float() - dense.float()).abs().max().item():.3e}")
+        for case, inp in gg_cases(dev, dtype).items():
+            out = run_gg(gg.grouped_gemm, inp)
+            err = within(out, run_gg(gg.grouped_gemm_plain, inp))
+            gs = inp["group_sizes"]
+            errs[("grouped_gemm", case, dtype)] = err
+            log(f"[check] grouped_gemm {case} {str(dtype)[6:]} x {tuple(inp['x'].shape)} w "
+                f"{tuple(inp['w'].shape)}: {int((gs > 0).sum())} experts with rows, largest "
+                f"group {int(gs.max())}: max abs err {err:.3e}")
+            del out
     return errs
 
 
-def full_cfg(**kw):
+def full_cfg(arch=LLAMA, **kw):
     kw = dict(dict(scan_layers=False, remat=False, attention_impl="pallas"), **kw)
-    return dataclasses.replace(get_config("llama3.2-1b"), **kw)
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def free_card() -> None:
+    """Return what dropped engines and weights held to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def make_engine(cfg, params, dev, *, slots, max_len):
@@ -353,26 +485,31 @@ def host_line() -> str:
 ENGINE_REPEATS = 3
 
 
-def phase_serve(dev) -> dict:
-    log(f"[serve] host: {host_line()}")
-    log("[serve] repro_torch.launch.serve.main(['--arch', 'llama3.2-1b']) — CLI defaults")
+def phase_serve(dev, arch=LLAMA) -> dict:
+    tag = "[serve]" if arch == LLAMA else "[serve-moe]"
+    want = path(arch, paged=False)
+    cfg = full_cfg(arch)
+    log(f"{tag} host: {host_line()}")
+    log(f"{tag} repro_torch.launch.serve.main(['--arch', '{arch}']) — CLI defaults")
     reset_counts()
     t0 = time.perf_counter()
-    engine, reqs = serve.main(["--arch", "llama3.2-1b"])
+    engine, reqs = serve.main(["--arch", arch])
     torch.cuda.synchronize(dev)
     cli_counts = counts()
-    log(f"[serve] cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
-    require(cli_counts, DENSE_PATH, "dense serve CLI")
+    log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
+    require(cli_counts, want, "dense serve CLI")
+    require_per_forward(cli_counts, cfg, "dense serve CLI")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("the CLI left requests unserved")
     del engine
+    free_card()
 
-    cfg = full_cfg()
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
     eng = make_engine(cfg, params, dev, slots=8, max_len=2048)
     pl = eng.placement_result
-    log(f"[serve] engine: placement method={pl.method} devices={sorted(set(pl.placement.values()))} "
-        f"stages={len(eng.executor.stages)} (layers {[s.layer_ids for s in eng.executor.stages]})")
+    log(f"{tag} engine: placement method={pl.method} devices={sorted(set(pl.placement.values()))} "
+        f"stages={len(eng.executor.stages)} (layers {[s.layer_ids for s in eng.executor.stages]}); "
+        f"card memory allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
     # the same 16 requests served ENGINE_REPEATS times by one engine: the
     # spread of tok/s within one machine, the first run cold
     tok_s, first_tokens = [], None
@@ -383,7 +520,8 @@ def phase_serve(dev) -> dict:
         toks = sum(len(r.out_tokens) for r in reqs)
         prompt_toks = sum(len(r.prompt) for r in reqs)
         tok_s.append(toks / wall)
-        require(eng_counts, DENSE_PATH, "dense engine")
+        require(eng_counts, want, "dense engine")
+        require_per_forward(eng_counts, cfg, "dense engine")
         for r in reqs:
             if not (r.done and len(r.out_tokens) == 32
                     and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -391,11 +529,11 @@ def phase_serve(dev) -> dict:
         out = [r.out_tokens for r in reqs]
         same = "" if first_tokens is None else f", tokens as run 1: {out == first_tokens}"
         first_tokens = first_tokens or out
-        log(f"[serve] engine run {rep + 1}/{ENGINE_REPEATS}: 16 requests, {prompt_toks} prompt "
+        log(f"{tag} engine run {rep + 1}/{ENGINE_REPEATS}: 16 requests, {prompt_toks} prompt "
             f"tokens, {toks} generated tokens in {wall:.3f}s = {toks / wall:.1f} generated "
             f"tok/s, {(toks + prompt_toks) / wall:.1f} processed tok/s; launches "
             f"{eng_counts}{same}")
-    log(f"[serve] engine gen tok/s over {ENGINE_REPEATS} runs: {[round(x, 1) for x in tok_s]}, "
+    log(f"{tag} engine gen tok/s over {ENGINE_REPEATS} runs: {[round(x, 1) for x in tok_s]}, "
         f"median {float(np.median(tok_s)):.1f}, spread (max-min)/median "
         f"{(max(tok_s) - min(tok_s)) / float(np.median(tok_s)):.3f}; host: {host_line()}")
     # launches per forward: one fused [8, 64] forward through the executor
@@ -411,15 +549,16 @@ def phase_serve(dev) -> dict:
     per_fwd = counts()
     if not torch.isfinite(logits.float()).all() or logits.shape != (8, 64, cfg.vocab_size):
         raise AssertionError("fused forward gave non-finite or misshapen logits")
-    log(f"[serve] launches per fused forward: {per_fwd}")
+    log(f"{tag} launches per fused forward: {per_fwd}")
+    require_per_forward(per_fwd, cfg, "fused forward")
     del logits
-    phase_trace(eng, cfg, dev)
+    phase_trace(eng, cfg, dev, tag="[trace]" if arch == LLAMA else "[trace-moe]")
     del eng, params
-    torch.cuda.empty_cache()
+    free_card()
     return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s}
 
 
-def phase_trace(eng, cfg, dev) -> None:
+def phase_trace(eng, cfg, dev, tag="[trace]") -> None:
     """Where a serve step's time goes: a profiler trace of 16 engine steps
     (5 with 64-token prefill chunks of 8 new 300-token prompts, then decode),
     device time by kernel and the card's idle share of the wall time."""
@@ -449,33 +588,39 @@ def phase_trace(eng, cfg, dev) -> None:
         if dt > 0:
             rows.append((dt, e.key, e.count))
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"[trace] 16 engine steps: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
+    log(f"{tag} 16 engine steps: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
         f"device idle share {1 - busy / wall:.3f}" if rows else
-        "[trace] the profiler recorded no device time: not measured")
+        f"{tag} the profiler recorded no device time: not measured")
     for dt, key, n in sorted(rows, reverse=True)[:12]:
-        log(f"[trace]   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
+        log(f"{tag}   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
     eng.run_until_drained()
 
 
-def phase_parity(dev) -> None:
+def phase_parity(dev, arch=LLAMA) -> None:
+    tag = "[parity]" if arch == LLAMA else "[parity-moe]"
     # 2 full-width layers in fp32: kernels against plain versions, 32 greedy steps
     tokens = {}
     for impl in ("pallas", "naive"):
-        cfg = full_cfg(n_layers=2, dtype="float32", attention_impl=impl)
+        cfg = full_cfg(arch, n_layers=2, dtype="float32", attention_impl=impl)
         params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
         reset_counts()
         _, reqs, _ = serve_engine_run(cfg, params, dev, requests=6, slots=4,
                                       max_len=1024, max_new=32, seed=SEED + 1)
         tokens[impl] = [r.out_tokens for r in reqs]
-        log(f"[parity] fp32 2 layers impl={impl}: launches {counts()}")
+        got = counts()
+        log(f"{tag} fp32 2 layers impl={impl}: launches {got}")
+        if impl == "pallas":
+            require(got, path(arch, paged=False), "fp32 parity")
+            require_per_forward(got, cfg, "fp32 parity")
         del params
+        free_card()
     if tokens["pallas"] != tokens["naive"]:
         raise AssertionError("fp32 greedy tokens differ between kernel and plain paths")
-    log(f"[parity] fp32 2 layers: greedy tokens identical over 6 requests x 32 steps")
+    log(f"{tag} fp32 2 layers: greedy tokens identical over 6 requests x 32 steps")
 
     # bf16 full depth: one prefill's logits, kernels vs plain
     logits = {}
-    cfg = full_cfg()
+    cfg = full_cfg(arch)
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
     batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 300), device=dev,
                                      generator=torch.Generator(device=dev).manual_seed(1))}
@@ -488,10 +633,11 @@ def phase_parity(dev) -> None:
     if not torch.isfinite(logits["pallas"]).all():
         raise AssertionError("bf16 full-depth logits are not finite")
     agree = (logits["pallas"].argmax(-1) == logits["naive"].argmax(-1)).float().mean().item()
-    log(f"[parity] bf16 16 layers prefill [2, 300]: last-token logit max abs diff {diff:.3e}, "
-        f"argmax agreement {agree:.2f} (logit scale {logits['naive'].abs().max().item():.2f})")
+    log(f"{tag} bf16 {cfg.n_layers} layers prefill [2, 300]: last-token logit max abs diff "
+        f"{diff:.3e}, argmax agreement {agree:.2f} (logit scale "
+        f"{logits['naive'].abs().max().item():.2f})")
     del params
-    torch.cuda.empty_cache()
+    free_card()
 
 
 def shared_prefix_requests(cfg, *, n, prefix, suffix, max_new, rid0=0, seed=SEED):
@@ -562,23 +708,26 @@ def phase_parity_paged(dev) -> None:
 PAGED_REPEATS = 3
 
 
-def phase_serve_paged(dev) -> dict:
-    log("[serve-paged] repro_torch.launch.serve.main(['--arch', 'llama3.2-1b', "
-        "'--kv-page-tokens', '64'])")
+def phase_serve_paged(dev, arch=LLAMA) -> dict:
+    tag = "[serve-paged]" if arch == LLAMA else "[serve-moe-paged]"
+    want = path(arch, paged=True)
+    cfg = full_cfg(arch)
+    log(f"{tag} repro_torch.launch.serve.main(['--arch', '{arch}', '--kv-page-tokens', '64'])")
     reset_counts()
     t0 = time.perf_counter()
-    engine, reqs = serve.main(["--arch", "llama3.2-1b", "--kv-page-tokens", "64"])
+    engine, reqs = serve.main(["--arch", arch, "--kv-page-tokens", "64"])
     torch.cuda.synchronize(dev)
     cli_counts = counts()
-    log(f"[serve-paged] cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
-    require(cli_counts, PAGED_PATH, "paged serve CLI")
+    log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
+    require(cli_counts, want, "paged serve CLI")
+    require_per_forward(cli_counts, cfg, "paged serve CLI")
     if cli_counts["flash_attention"]:
         raise AssertionError("the paged CLI run went through the dense flash kernel")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("the paged CLI left requests unserved")
     del engine
+    free_card()
 
-    cfg = full_cfg()
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
     mk = lambda rep: shared_prefix_requests(cfg, n=16, prefix=512, suffix=(100, 600),  # noqa: E731
                                             max_new=32, rid0=100 * rep)
@@ -591,7 +740,8 @@ def phase_serve_paged(dev) -> dict:
         reset_counts()
         wall = serve_reqs(eng, reqs, dev)
         got = counts()
-        require(got, PAGED_PATH, "paged engine")
+        require(got, want, "paged engine")
+        require_per_forward(got, cfg, "paged engine")
         kv = eng.straggler_report()["kv"]
         delta = {k: kv[k] - prev[k] for k in prev}
         prev = {k: kv[k] for k in prev}
@@ -610,12 +760,12 @@ def phase_serve_paged(dev) -> dict:
         same = "" if paged_tokens is None else (
             f", requests with run 1's tokens: {sum(a == b for a, b in zip(out, paged_tokens))}/16")
         paged_tokens = paged_tokens or out
-        log(f"[serve-paged] paged run {rep + 1}/{PAGED_REPEATS}: 16 requests, {prompt_toks} "
+        log(f"{tag} paged run {rep + 1}/{PAGED_REPEATS}: 16 requests, {prompt_toks} "
             f"prompt tokens, {toks} generated in {wall:.3f}s = {toks / wall:.1f} generated "
             f"tok/s; this run: prefix hits (reused pages) {delta['reused_pages']}, COW copies "
             f"{delta['cow_copies']}, evictions {delta['evicted']}, pages allocated "
             f"{delta['alloc']}, skipped prefill chunks {skipped}; launches {got}{same}")
-    log(f"[serve-paged] pool stats after {PAGED_REPEATS} runs: {eng.straggler_report()['kv']}")
+    log(f"{tag} pool stats after {PAGED_REPEATS} runs: {eng.straggler_report()['kv']}")
     reset_counts()
     eng.caches = None
     eng._ensure_caches()
@@ -625,8 +775,10 @@ def phase_serve_paged(dev) -> dict:
                          page_table=eng._page_table())
     torch.cuda.synchronize(dev)
     per_fwd = counts()
-    log(f"[serve-paged] launches per fused forward: {per_fwd}")
+    log(f"{tag} launches per fused forward: {per_fwd}")
+    require_per_forward(per_fwd, cfg, "paged fused forward")
     del eng
+    free_card()
 
     # the same requests through a dense engine, in the same call
     dense = make_engine(cfg, params, dev, slots=8, max_len=2048)
@@ -640,13 +792,13 @@ def phase_serve_paged(dev) -> dict:
             same_req = sum(a == b for a, b in zip(out, paged_tokens))
             same_tok = sum(x == y for a, b in zip(out, paged_tokens) for x, y in zip(a, b))
             agree = (same_req, same_tok)
-    log(f"[serve-paged] generated tok/s, paged {[round(x, 1) for x in tok_s]} vs dense "
+    log(f"{tag} generated tok/s, paged {[round(x, 1) for x in tok_s]} vs dense "
         f"{[round(x, 1) for x in dense_tok_s]} on the same requests; bf16 paged vs dense "
         f"tokens: {agree[0]}/16 requests and {agree[1]}/512 tokens identical (a shared "
         "prefix's KV is computed in another step shape, so bf16 identity is reported, not "
         "required)")
     del dense, params
-    torch.cuda.empty_cache()
+    free_card()
     return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s,
             "dense_tok_s": dense_tok_s}
 
@@ -721,28 +873,62 @@ def sdpa_call(inp, extra):
     )
 
 
-def phase_time(dev) -> dict:
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)   # > 50 MB L2
-    rows = {}
-    dtype = torch.bfloat16
-    for case, (inp, extra) in flash_cases(dev, dtype).items():
+def gg_work(inp) -> tuple:
+    """Bytes the grouped GEMM must move and flops it must do for THESE
+    inputs: the weights of each expert that has rows, read once; x read
+    and out written once; the group sizes."""
+    x, w, gs = inp["x"], inp["w"], inp["group_sizes"]
+    m, k = x.shape
+    n = w.shape[2]
+    es = x.element_size()
+    touched = int((gs > 0).sum().item())
+    byts = touched * k * n * es + m * k * es + m * n * es + 4 * gs.numel()
+    return byts, 2 * m * k * n
+
+
+def gg_library(inp):
+    """One PyTorch call for the same function (a yardstick only, never
+    called by the port): ``torch._grouped_mm`` where this PyTorch has it,
+    else a per-expert ``torch.matmul`` loop.  Returns (label, callable)."""
+    x, w, gs = inp["x"], inp["w"], inp["group_sizes"]
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        return "torch._grouped_mm", lambda: torch._grouped_mm(x, w, offs=offs)
+    bounds = np.concatenate([[0], np.cumsum(gs.tolist())]).tolist()
+    pieces = [(e, a, b) for e, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])) if b > a]
+    return "per-expert torch.matmul loop", lambda: [x[a:b] @ w[e] for e, a, b in pieces]
+
+
+def time_flash(dev, flush, rows, arch, prefix, dtype) -> None:
+    """The dense flash kernel at ``arch``'s heads, decode and chunk (and
+    window + softcap for llama), L2 flushed before each call."""
+    for case, (inp, extra) in flash_cases(dev, dtype, arch).items():
+        if arch != LLAMA and extra:
+            continue
         byts, flops = flash_work(inp, extra)
         b_ms, b_by = bound(byts, flops, dtype)
-        rows[("flash_attention", case)] = dict(
+        rows[("flash_attention", prefix + case)] = dict(
             ms=time_ms(dev, lambda: run_flash(fa.flash_attention, inp, extra), flush=flush),
             plain_ms=time_ms(dev, lambda: run_flash(fa.flash_attention_plain, inp, extra),
                              iters=10, flush=flush),
             library_ms=time_opt(dev, sdpa_call(inp, extra), iters=20, flush=flush),
             bound_ms=b_ms, bound_by=b_by,
         )
+
+
+def time_paged(dev, flush, rows, arch, prefix, dtype) -> None:
+    """The paged flash kernel at ``arch``'s heads, P = 64, beside the dense
+    kernel at the same depths and the gather + SDPA yardstick."""
     rng = np.random.default_rng(SEED)
     decode = rng.integers(0, 2048, size=8).tolist()
     lens = [64, 1, 0, 64, 17, 1, 64, 0]
     depths = [int(rng.integers(0, 2048 - n + 1)) for n in lens]
+    hk = HEADS[arch]
     for case, inp in (
-        ("decode", paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1, shared=0)),
+        ("decode", paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1, shared=0,
+                                **hk)),
         ("fused_chunk", paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64,
-                                     shared=0)),
+                                     shared=0, **hk)),
     ):
         dense_inp = gathered(inp)
         byts, flops = flash_work(dense_inp, {})
@@ -753,7 +939,7 @@ def phase_time(dev) -> dict:
         b_ms, b_by = bound(byts, flops, dtype)
         gather = lambda: (fa.paged_view(inp["pool_k"], inp["table"]),  # noqa: E731
                           fa.paged_view(inp["pool_v"], inp["table"]))
-        rows[("flash_attention_paged", case)] = dict(
+        rows[("flash_attention_paged", prefix + case)] = dict(
             ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged, inp, {}), flush=flush),
             plain_ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged_plain, inp, {}),
                              iters=10, flush=flush),
@@ -763,12 +949,50 @@ def phase_time(dev) -> dict:
             sdpa_ms=time_opt(dev, sdpa_call(dense_inp, {}), iters=20, flush=flush),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
         )
-        r = rows[("flash_attention_paged", case)]
+        r = rows[("flash_attention_paged", prefix + case)]
         sd = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms"
-        log(f"[time] flash_attention_paged {case} P=64 bf16: kernel {r['ms']:.4f} ms, dense "
-            f"kernel at the same depths {r['dense_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"yardstick gather {r['gather_ms']:.4f} ms + SDPA {sd}, bound {r['bound_ms']:.5f} "
-            f"ms ({r['bound_by']}), kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
+        log(f"[time] flash_attention_paged {prefix}{case} P=64 bf16: kernel {r['ms']:.4f} ms, "
+            f"dense kernel at the same depths {r['dense_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, yardstick gather {r['gather_ms']:.4f} ms + SDPA {sd}, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), kernel/bound "
+            f"{r['ms'] / r['bound_ms']:.1f}x")
+
+
+def time_gg(dev, flush, rows, dtype) -> None:
+    """The grouped GEMM at qwen2-moe's four main-path shapes, L2 flushed
+    before each call (the main path meets each layer's experts cold)."""
+    for proj, (k, n) in GG_SHAPES.items():
+        for routing, tokens in GG_ROUTING.items():
+            inp = gg_inputs(dev, dtype, sizes=routed_sizes(tokens), k=k, n=n)
+            byts, flops = gg_work(inp)
+            b_ms, b_by = bound(byts, flops, dtype)
+            label, lib = gg_library(inp)
+            ref = run_gg(gg.grouped_gemm_plain, inp)
+            lib_out = lib()
+            lib_out = torch.cat(lib_out) if isinstance(lib_out, list) else lib_out
+            lib_err = (lib_out.float() - ref.float()).abs().max().item()
+            r = rows[("grouped_gemm", f"{proj}_{routing}")] = dict(
+                ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm, inp), flush=flush),
+                plain_ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm_plain, inp), iters=10,
+                                 flush=flush),
+                library_ms=time_ms(dev, lib, iters=20, flush=flush), library=label,
+                bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops,
+            )
+            log(f"[time] grouped_gemm {proj} {routing} bf16 x {tuple(inp['x'].shape)} w "
+                f"{tuple(inp['w'].shape)}, {int((inp['group_sizes'] > 0).sum())} experts with "
+                f"rows: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {label} "
+                f"{r['library_ms']:.4f} ms (max abs diff to plain {lib_err:.3e}), bound "
+                f"{b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+                f"kernel/bound {r['ms'] / b_ms:.1f}x")
+            del inp, ref, lib_out
+
+
+def phase_time(dev) -> dict:
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)   # > 50 MB L2
+    rows = {}
+    dtype = torch.bfloat16
+    time_flash(dev, flush, rows, LLAMA, "", dtype)
+    time_paged(dev, flush, rows, LLAMA, "", dtype)
     for nrows in (512, 8):
         x, w = rms_inputs(dev, dtype, rows=nrows)
         w1 = (1.0 + w).to(dtype)
@@ -784,6 +1008,8 @@ def phase_time(dev) -> dict:
             ),
             bound_ms=b_ms, bound_by=b_by,
         )
+    time_flash(dev, flush, rows, MOE, "d128_", dtype)
+    time_paged(dev, flush, rows, MOE, "d128_", dtype)
     for (name, case), r in rows.items():
         if name == "flash_attention_paged":
             continue
@@ -791,6 +1017,7 @@ def phase_time(dev) -> dict:
         log(f"[time] {name} {case} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
+    time_gg(dev, flush, rows, dtype)
     del flush
     return rows
 
@@ -805,6 +1032,9 @@ def main() -> int:
     phase_parity(dev)
     phase_parity_paged(dev)
     served_paged = phase_serve_paged(dev)
+    phase_parity(dev, MOE)
+    served_moe = phase_serve(dev, MOE)
+    served_moe_paged = phase_serve_paged(dev, MOE)
     times = phase_time(dev)
 
     kernels = []
@@ -817,6 +1047,9 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:120"),
         ("rmsnorm", "rows512", "rows512", served, "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm/kernel.py:22"),
+        ("grouped_gemm", "gate_up_chunk", "gate_up_chunk", served_moe,
+         "src/repro_torch/csrc/grouped_gemm.cu",
+         "src/repro/kernels/grouped_gemm/kernel.py:29"),
     ):
         t = times[(name, case)]
         row = {
@@ -830,6 +1063,18 @@ def main() -> int:
         if name == "flash_attention_paged":
             row.update(dense_ms=t["dense_ms"], yardstick_gather_ms=t["gather_ms"],
                        yardstick_sdpa_ms=t["sdpa_ms"])
+        if name.startswith("flash_attention"):
+            # the head-dim-128 instance, on qwen2-moe's serve path
+            t128 = times[(name, "d128_fused_chunk")]
+            moe_run = served_moe_paged if name.endswith("paged") else served_moe
+            row["d128"] = {
+                "launches": moe_run["cli"][name], "ms": t128["ms"], "plain_ms": t128["plain_ms"],
+                "bound_ms": t128["bound_ms"], "bound_by": t128["bound_by"],
+                "library_ms": t128["library_ms"],
+                "max_abs_err": errs[(name, "d128_" + err_case, torch.bfloat16)],
+            }
+        if name == "grouped_gemm":
+            row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name])
         kernels.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card["smi"])

@@ -68,23 +68,43 @@ def _index(node, i):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Params:
-    """Fresh dense-decoder params at the reference's distributions: dense
-    weights ``normal · 1/√d_in``, embeddings ``normal · 0.02``, norms zero
-    (offset form, fp32).  Drawn in fp32 on ``generator``'s device, then
-    cast to ``cfg.dtype`` on ``device`` (default: the first card) — no JAX
-    needed."""
+    """Fresh decoder params (dense or MoE) at the reference's
+    distributions: dense weights ``normal · 1/√d_in``, embeddings
+    ``normal · 0.02``, norms zero (offset form, fp32); an MoE layer's router
+    fp32 ``[d, E_pad]`` at ``1/√d``, its experts ``w_gate``/``w_up``
+    ``[E_pad, d, f]`` at ``1/√d`` and ``w_down`` ``[E_pad, f, d]`` at
+    ``1/√f``, with arctic's parallel dense FFN (``mlp``) and qwen2-moe's
+    merged shared experts (``shared_mlp``) as dense MLPs.  Drawn in fp32 on
+    ``generator``'s device, then cast to ``cfg.dtype`` on ``device``
+    (default: the first card) — no JAX needed."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg)
     gdev = generator.device
     hd = cfg.resolved_head_dim
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=dt):
         w = torch.randn(shape, generator=generator, device=gdev, dtype=torch.float32)
-        return (w * std).to(device=device, dtype=dt)
+        return (w * std).to(device=device, dtype=dtype)
 
     def dense(d_in, d_out):
         return normal((d_in, d_out), 1.0 / math.sqrt(d_in))
+
+    def mlp(d_ff):
+        return {
+            "w_gate": dense(cfg.d_model, d_ff),
+            "w_up": dense(cfg.d_model, d_ff),
+            "w_down": dense(d_ff, cfg.d_model),
+        }
+
+    def moe():
+        e, d, f = cfg.n_experts_padded or cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        return {
+            "router": normal((d, e), 1.0 / math.sqrt(d), torch.float32),
+            "w_gate": normal((e, d, f), 1.0 / math.sqrt(d)),
+            "w_up": normal((e, d, f), 1.0 / math.sqrt(d)),
+            "w_down": normal((e, f, d), 1.0 / math.sqrt(f)),
+        }
 
     def norm(d):
         return torch.zeros((d,), dtype=torch.float32, device=device)
@@ -99,19 +119,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
         if cfg.qk_norm:
             attn["q_norm"] = norm(hd)
             attn["k_norm"] = norm(hd)
-        p = {
-            "ln_attn": norm(cfg.d_model),
-            "attn": attn,
-            "ln_mlp": norm(cfg.d_model),
-            "mlp": {
-                "w_gate": dense(cfg.d_model, cfg.d_ff),
-                "w_up": dense(cfg.d_model, cfg.d_ff),
-                "w_down": dense(cfg.d_ff, cfg.d_model),
-            },
-        }
+        p = {"ln_attn": norm(cfg.d_model), "attn": attn, "ln_mlp": norm(cfg.d_model)}
         if cfg.post_block_norm:
             p["ln_attn_post"] = norm(cfg.d_model)
             p["ln_mlp_post"] = norm(cfg.d_model)
+        if cfg.family == "moe" or cfg.n_experts:
+            p["moe"] = moe()
+            if cfg.dense_parallel_ff and cfg.d_ff:
+                p["mlp"] = mlp(cfg.d_ff)
+            if cfg.n_shared_experts and cfg.shared_d_ff:
+                p["shared_mlp"] = mlp(cfg.shared_d_ff)
+        else:
+            p["mlp"] = mlp(cfg.d_ff)
         return p
 
     p: Params = {"embed": normal((cfg.vocab_size, cfg.d_model), 0.02)}

@@ -37,9 +37,11 @@
 // in the input type in shared memory (rows padded by 16 bytes against bank
 // conflicts) and are read as pairs of elements.  In a prefill tile (64
 // rows) four lanes own one query row: each scores 16 keys of the tile and
-// accumulates 16 (D = 64) output dims; a decode tile has 4 rows of 16 lanes,
-// 4 keys and 4 dims a lane, so no lane idles on the few rows of a decode
-// step.  Row max and sum are reduced across a row's lanes with shuffles,
+// accumulates D/4 output dims (16 at D = 64, 32 at D = 128); a decode tile
+// has 4 rows of 16 lanes, 4 keys and D/16 dims a lane, so no lane idles on
+// the few rows of a decode step with rep >= 4 (llama3.2-1b's GQA).  Without
+// GQA (rep = 1, qwen2-moe) a decode step has one row per (b, KV head), and
+// three of the tile's four rows idle: a known waste, not yet addressed.  Row max and sum are reduced across a row's lanes with shuffles,
 // and the probabilities are exchanged by shuffle for the P·V product.  The
 // key loop starts at the tile's first in-window key and stops at its last
 // visible key, q_offset + min(q_len, last row) - 1, so idle rows cost
@@ -343,29 +345,43 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out,
                              causal, window, softcap, k_len, stream);
 }
 
+// the instances built: head dim 64 (llama3.2-1b) and 128 (qwen2-moe-a2.7b),
+// each in fp32 and bf16; any other (D, dtype) returns cudaErrorInvalidValue
+template <typename Addr>
+int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
+                      const int* q_offsets, const int* q_lens, int B, int Sq, int H, int D,
+                      int dtype, Addr addr, int KV, float scale, int causal, int window,
+                      float softcap, int k_len, cudaStream_t s) {
+#define FLASH_INSTANCE(T, DIM)                                                                \
+  return dispatch_rows<T, DIM>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,    \
+                               causal, window, softcap, k_len, s)
+  if (D == 64 && dtype == 0) FLASH_INSTANCE(float, 64);
+  if (D == 64 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 64);
+  if (D == 128 && dtype == 0) FLASH_INSTANCE(float, 128);
+  if (D == 128 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 128);
+#undef FLASH_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  q_offsets
 // and q_lens are device int32 [B].  window <= 0 and softcap <= 0 disable
-// them.  Built for head dim 64 (llama3.2-1b); other head dims come with the
-// configs that need them.  Returns a cudaError_t (0 = success); a shape the
-// kernel does not take returns cudaErrorInvalidValue without launching.
+// them.  Built for head dims 64 (llama3.2-1b) and 128 (qwen2-moe-a2.7b);
+// other head dims come with the configs that need them.  Returns a
+// cudaError_t (0 = success); a shape the kernel does not take returns
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    const int* q_offsets, const int* q_lens, int B, int Sq,
                                    int H, int Sk, int KV, int D, int dtype, float scale,
                                    int causal, int window, float softcap, int k_len,
                                    void* stream) {
-  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len > Sk || k_len < 0 || D != 64)
+  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len > Sk || k_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DenseKV addr{Sk};
-  if (dtype == 0)
-    return dispatch_rows<float, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
-                                    causal, window, softcap, k_len, s);
-  if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16, 64>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr,
-                                            KV, scale, causal, window, softcap, k_len, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_head_dim(q, k, v, out, q_offsets, q_lens, B, Sq, H, D, dtype, addr, KV,
+                           scale, causal, window, softcap, k_len, s);
 }
 
 // The paged kernel: K/V read through `table` [B, pages_per_slot] (device
@@ -379,17 +395,12 @@ extern "C" int flash_attention_paged_fwd(const void* q, const void* pool_k, cons
                                          int P, int pages_per_slot, int num_pages_plus_1,
                                          int dtype, float scale, int causal, int window,
                                          float softcap, void* stream) {
-  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || D != 64 || P <= 0 ||
-      pages_per_slot <= 0 || num_pages_plus_1 <= 0)
+  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || P <= 0 || pages_per_slot <= 0 ||
+      num_pages_plus_1 <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PagedKV addr{table, pages_per_slot, P, num_pages_plus_1 - 1};
   const int k_len = pages_per_slot * P;
-  if (dtype == 0)
-    return dispatch_rows<float, 64>(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H, addr,
-                                    KV, scale, causal, window, softcap, k_len, s);
-  if (dtype == 1)
-    return dispatch_rows<__nv_bfloat16, 64>(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H,
-                                            addr, KV, scale, causal, window, softcap, k_len, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_head_dim(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H, D, dtype, addr,
+                           KV, scale, causal, window, softcap, k_len, s);
 }

@@ -25,7 +25,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm.cu", "flash_attention.cu")
+SOURCES = ("rmsnorm.cu", "flash_attention.cu", "grouped_gemm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,6 +119,12 @@ def load() -> ctypes.CDLL:
         _P,                                # stream
     ]
     lib.flash_attention_paged_fwd.restype = _I
+    lib.grouped_gemm_fwd.argtypes = [
+        _P, _P, _P, _P,                    # x, w, group_sizes, out
+        _I, _I, _I, _I, _I,                # M, K, N, E, dtype
+        _P,                                # stream
+    ]
+    lib.grouped_gemm_fwd.restype = _I
     _lib = lib
     return lib
 

@@ -1,6 +1,6 @@
 """Model façade: ``build_model(cfg)`` returns a ``Model`` with uniform entry
-points, so the engine never branches on family.  Only the dense family is
-ported; the others raise ``NotImplementedError`` here."""
+points, so the engine never branches on family.  The dense and MoE
+families are ported; the others raise ``NotImplementedError`` here."""
 
 from __future__ import annotations
 

@@ -1,15 +1,22 @@
-"""Decoder-only transformer stack of the port: the dense family
-(llama3.2-1b, qwen3-14b with qk-norm, gemma-7b with GeGLU and head 256,
-gemma2-27b with local/global windows, softcaps and post-norms), with a
-dense or paged KV cache and the entry points the serving path calls:
-``prefill``, ``prefill_chunked``, ``decode_step`` and ``fused_step``.
+"""Decoder-only transformer stack of the port, with a dense or paged KV
+cache and the entry points the serving path calls: ``prefill``,
+``prefill_chunked``, ``decode_step`` and ``fused_step``.
+
+Family wiring:
+
+* dense — llama3.2-1b, qwen3-14b (qk-norm), gemma-7b (GeGLU, head 256),
+  gemma2-27b (local/global windows, softcaps, post-norms);
+* moe — qwen2-moe-a2.7b (60 routed experts padded to 64, top-4, plus the
+  shared experts merged into one FFN), arctic-480b (128 experts top-2 with
+  a dense FFN in parallel): the routed experts go through
+  :func:`repro_torch.models.moe.moe_apply`.
 
 Parameters hold one dict per layer (``params["layers"]`` is a list), the
 serving layout, whatever ``cfg.scan_layers`` says; ``remat`` is a training
 knob and is ignored.  The KV cache is ``{"layers": {"k", "v"}}`` with one
 ``[L, B, max_len, KV, hd]`` tensor each (dense) or one
 ``[L, num_pages + 1, P, KV, hd]`` page pool each (paged, with the page
-table passed to every forward as ``page_table``), updated in place.  MoE,
+table passed to every forward as ``page_table``), updated in place.  The
 SSM, hybrid, VLM and enc-dec families raise ``NotImplementedError``.
 """
 
@@ -23,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .layers import Params, uses_kernels, mlp, multihead_attention, rmsnorm, softcap
+from .moe import moe_apply
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -32,11 +40,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not serve."""
-    if cfg.family != "dense" or cfg.n_experts:
+    """Raise for the families the port does not serve yet."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: only dense "
-            "decoders are (ROADMAP A9-A11)"
+            "and MoE decoders are (ROADMAP A10-A11)"
         )
 
 
@@ -80,7 +88,14 @@ def block_apply(
     x = x + attn_out
 
     h = rmsnorm(x, p["ln_mlp"], kernel=kernels)
-    ff_out = mlp(p["mlp"], h, cfg.activation)
+    if "moe" in p:
+        ff_out = moe_apply(p["moe"], h, cfg, kernel=kernels)
+        if "mlp" in p:                       # arctic: dense FFN in parallel
+            ff_out = ff_out + mlp(p["mlp"], h, cfg.activation)
+        if "shared_mlp" in p:                # qwen2-moe shared experts
+            ff_out = ff_out + mlp(p["shared_mlp"], h, cfg.activation)
+    else:
+        ff_out = mlp(p["mlp"], h, cfg.activation)
     if cfg.post_block_norm:
         ff_out = rmsnorm(ff_out, p["ln_mlp_post"], kernel=kernels)
     return x + ff_out, new_cache

@@ -6,8 +6,9 @@ co-located blocks become *stages*; each stage's parameters live on its
 ``torch.device``, and activations hop between stages with ``.to(device)``.
 Each Moirai device maps to one physical device.
 
-Supports dense decoder-only models with per-layer params (the serving
-layout).  Each stage's KV cache stays resident on that stage's device and
+Supports dense and MoE decoder-only models with per-layer params (the
+serving layout; an MoE layer's expert weights move with the rest of its
+nested dict).  Each stage's KV cache stays resident on that stage's device and
 is **updated in place** by :meth:`StageExecutor.forward` (the returned
 caches hold the same tensors; the ``(x, new_caches)`` return is kept for
 parity with the reference).  Decode accepts a ``(B,)`` ``cache_pos``

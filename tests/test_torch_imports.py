@@ -39,6 +39,9 @@ def test_every_module_imports_with_jax_blocked():
         "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2',"
         " '--kv-page-tokens', '4'])\n"
+        # ...and the MoE path
+        "main(['--arch', 'qwen2-moe-a2.7b', '--smoke', '--device', 'cpu', '--requests', '2',"
+        " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2'])\n"
         "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " if sys.modules[m] is not None]\n"
         "print(len(names))\n"

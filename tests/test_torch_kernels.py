@@ -1,7 +1,8 @@
 """The port's kernels: plain versions against the reference's Pallas kernels
 (interpret mode on the CPU), the CPU dispatch of the wrappers, and — on a
 CUDA card only (``-m gpu``) — each CUDA kernel against its plain version
-(the paged flash kernel's CPU parity is in ``test_torch_paged.py``).
+(the paged flash kernel's CPU parity is in ``test_torch_paged.py``, the
+grouped GEMM's in ``test_torch_moe.py``).
 
 Tolerances: fp32 2e-4 and bf16 3e-2 against the Pallas kernels (as
 ``test_kernels.py``); 2e-5 against the ragged-row oracle (as
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import rmsnorm as rn
 
 
@@ -239,8 +241,9 @@ def test_flash_kernel_fused_chunk_on_card(cuda_device, dtype, window, softcap):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_kernel_head_dims_on_card(cuda_device, d):
-    """The kernel is built for head dim 64; the wrapper refuses the others."""
-    if d != 64:
+    """The kernel is built for head dims 64 and 128; the wrapper refuses
+    the others."""
+    if d not in (64, 128):
         with pytest.raises(ValueError, match="head_dim"):
             _card_flash_case(cuda_device, torch.float32, sq=5, sk=200, b=2, depths=[0, 150],
                              q_lens=[5, 3], h=4, kv=2, d=d)
@@ -358,3 +361,112 @@ def test_paged_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device):
                                  pv[..., :32].contiguous(), table, offs, lens, scale=1.0)
     with pytest.raises(TypeError):
         fa.flash_attention_paged(q, pk, pv, table, offs.long(), lens, scale=1.0)
+    # head dim 128 runs (qwen2-moe-a2.7b)
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, torch.float32, P=16, depths=[0, 16], q_lens=[5, 1], sq=5, h=4, kv=2, d=128)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, scale=1.0)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, scale=1.0)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("sq", [1, 64], ids=["decode", "fused_chunk"])
+def test_flash_kernels_head_dim_128_without_gqa_on_card(cuda_device, dtype, paged, sq):
+    """qwen2-moe-a2.7b's attention: head dim 128, 16 query and 16 KV heads
+    (rep = 1), decode rows and fused chunks at random depths."""
+    q_lens = [1] * 8 if sq == 1 else [64, 1, 0, 17, 64, 1, 17, 0]
+    rng = np.random.default_rng(sq)
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in q_lens]
+    if not paged:
+        _card_flash_case(cuda_device, dtype, sq=sq, sk=2048, b=8, depths=depths,
+                         q_lens=q_lens, h=16, kv=16, d=128)
+        return
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, dtype, P=64, depths=depths, q_lens=q_lens, sq=sq, h=16, kv=16, d=128)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, scale=128 ** -0.5)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, scale=128 ** -0.5)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+# ------------------------------------------------------ grouped GEMM (-m gpu)
+def _card_gg_case(device, dtype, *, sizes, k, n, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    e, m = len(sizes), int(sum(sizes))
+    x = torch.randn(m, k, generator=g, device=device).to(dtype)
+    w = (torch.randn(e, k, n, generator=g, device=device) * k ** -0.5).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+    before = gg.launches
+    out = gg.grouped_gemm(x, w, gs)
+    assert gg.launches == before + 1
+    ref = gg.grouped_gemm_plain(x, w, gs)
+    torch.cuda.synchronize(device)
+    _assert_within(out, ref)
+
+
+def _routed_sizes(tokens, top_k, e_real, e_pad, seed):
+    """Group sizes of ``tokens`` tokens routed top-``k`` over ``e_real`` of
+    ``e_pad`` experts (the padding experts empty)."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.choice(e_real, top_k, replace=False) for _ in range(tokens)])
+    return np.bincount(ids.ravel(), minlength=e_pad).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)], ids=["gate_up", "down"])
+@pytest.mark.parametrize("routing", ["decode", "chunk"])
+def test_grouped_gemm_kernel_at_qwen2_moe_shapes_on_card(cuda_device, dtype, k, n, routing):
+    """qwen2-moe-a2.7b's expert products: 8 decode tokens (M = 32, about one
+    row an expert) or a fused chunk of 8 × 64 tokens (M = 2048 over the 60
+    real of 64 experts), top-4."""
+    tokens = 8 if routing == "decode" else 512
+    _card_gg_case(cuda_device, dtype, sizes=_routed_sizes(tokens, 4, 60, 64, seed=k), k=k, n=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "sizes",
+    [[200, 0, 0, 0], [0, 0, 0, 77], [1, 0, 64, 65, 0, 1], [129] + [0] * 7, [3, 5, 0, 1]],
+    ids=["one_expert", "last_expert", "ragged", "past_two_tiles", "tiny"],
+)
+def test_grouped_gemm_kernel_edge_groups_on_card(cuda_device, dtype, sizes):
+    """All rows in one expert, the last expert only, groups of one row, M
+    not a multiple of the 64-row tile, and a K and N tail."""
+    _card_gg_case(cuda_device, dtype, sizes=sizes, k=136, n=200)
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_kernel_zeroes_rows_past_the_last_group(cuda_device):
+    x = torch.randn(100, 64, device=cuda_device)
+    w = torch.randn(3, 64, 32, device=cuda_device) * 0.125
+    gs = torch.tensor([10, 0, 20], dtype=torch.int32, device=cuda_device)
+    out = gg.grouped_gemm(x, w, gs)
+    torch.cuda.synchronize(cuda_device)
+    assert not out[30:].any()
+    _assert_within(out, gg.grouped_gemm_plain(x, w, gs))
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(16, 64, device=cuda_device)
+    w = torch.randn(2, 64, 32, device=cuda_device)
+    gs = torch.tensor([8, 8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gg.grouped_gemm(x.to(torch.bfloat16), w, gs)
+    with pytest.raises(TypeError):
+        gg.grouped_gemm(x, w, gs.long())
+    with pytest.raises(ValueError):
+        gg.grouped_gemm(x[:, :60].contiguous(), w[:, :60].contiguous(), gs)   # K % 8
+    with pytest.raises(ValueError):
+        gg.grouped_gemm(x, w[:, :, :30].contiguous(), gs)                     # N % 8
+    with pytest.raises(ValueError):
+        gg.grouped_gemm(x.t().contiguous().t(), w, gs)                        # not contiguous
+    with pytest.raises(ValueError):
+        gg.grouped_gemm(x, w, gs.cpu())
