@@ -46,15 +46,38 @@ Phases (any failure exits non-zero; nothing is caught):
    engine on the shared-prefix requests three times beside a dense one.
    Every forward must launch the grouped-GEMM kernel 3 × 24 times, and the
    head-dim-128 flash kernel must have launched;
-8. time each kernel, its plain version and one PyTorch library call for
+8. SSM and hybrid: ``[check-ssd]`` holds the SSD chunked-scan kernel to
+   its plain version (fp32 and bf16 within 1e-5 and 4e-2 of max |ref|,
+   for y and the final state) at the reference test's shapes, both
+   models' heads at S = 1, 17, 64, 200, from zero and random initial
+   states, with the final state written over the initial one (as the
+   model updates its cache), and with dt zeroed past per-row lengths;
+   phase 3 also holds both flash kernels at zamba2's head dim 80 (32
+   heads, no GQA) and RMSNorm at the SSM path's widths 768, 1536, 2560
+   and 5120 (512 and 8 rows).
+   ``[serve-ssm]``: full-width mamba2-130m and zamba2-2.7b (bf16, random
+   weights from a seed) through ``build_model(cfg).fused_step``, driven
+   like ``tests/test_fused_step.py::_fused_generate`` (8 requests of
+   100–600 prompt tokens, 64-token chunks, 32 new tokens, three runs):
+   every forward must launch RMSNorm 2 per Mamba layer + 2 per shared
+   block + 1, the SSD kernel once per Mamba layer when S > 1 (never at
+   S = 1), and zamba2's flash kernel once per shared block (9).
+   ``[parity-ssm]``: fp32 kernels vs plain give identical greedy tokens
+   (mamba2 at full depth, zamba2 at one 6-layer segment); bf16 full-depth
+   prefill logits kernels vs plain and prefill_chunked vs prefill (the
+   same argmax except at a bf16 tie of at most two bf16 steps); zamba2
+   paged (P = 64) gives dense's greedy tokens.  ``[trace-ssm]``: a
+   profiler trace of 16 zamba2 driver steps;
+9. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
    yardstick gather + SDPA (no single PyTorch call reads through a page
-   table); the flash kernels at qwen2-moe's head dim 128 too; the grouped
-   GEMM at qwen2-moe's decode and chunk routings, beside
+   table); the flash kernels at qwen2-moe's head dim 128 and zamba2's 80
+   too; the grouped GEMM at qwen2-moe's decode and chunk routings, beside
    ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
-   ``torch.matmul`` loop, labelled so).
+   ``torch.matmul`` loop, labelled so); the SSD kernel at both models'
+   fused-chunk shapes (no single PyTorch call computes the scan).
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -66,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import platform
 import shutil
@@ -91,9 +115,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serving.kv_pool import KVPool  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / fp32 non-tensor
@@ -118,11 +144,12 @@ def reset_counts() -> None:
     fa.paged_launches = 0
     rn.launches = 0
     gg.launches = 0
+    ssd.launches = 0
 
 
 def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
-            "rmsnorm": rn.launches, "grouped_gemm": gg.launches}
+            "rmsnorm": rn.launches, "grouped_gemm": gg.launches, "ssd_scan": ssd.launches}
 
 
 def require(got: dict, names, what: str) -> None:
@@ -134,6 +161,8 @@ def require(got: dict, names, what: str) -> None:
 
 LLAMA = "llama3.2-1b"
 MOE = "qwen2-moe-a2.7b"
+MAMBA = "mamba2-130m"
+ZAMBA = "zamba2-2.7b"
 # the kernels each path must launch: dense or paged KV, plus the grouped
 # GEMM for an MoE model
 DENSE_PATH = ("flash_attention", "rmsnorm")
@@ -184,7 +213,8 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
 
 
 # attention heads (query, KV) and head dim of each served model
-HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128)}
+HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128),
+         ZAMBA: dict(h=32, kv=32, d=80)}
 
 
 def flash_cases(dev, dtype, arch=LLAMA):
@@ -251,7 +281,7 @@ def paged_cases(dev, dtype, arch=LLAMA):
     """Decode and fused-chunk rows at random depths (q_len 0, 1, 17, 64),
     row 1 reading row 0's shared pages; pages of 16, 64 and 48 tokens (48
     does not divide the kernel's 64-key tile); window and softcap.  For the
-    MoE model's head dim, pages of 64 only."""
+    MoE and hybrid models' head dims, pages of 64 only."""
     rng = np.random.default_rng(SEED)
     decode = rng.integers(0, 2048, size=8).tolist()
     lens = [64, 1, 0, 64, 17, 1, 64, 0]
@@ -395,6 +425,15 @@ def phase_check(dev) -> dict:
         err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
         errs[("rmsnorm", "rows512", dtype)] = err
         log(f"[check] rmsnorm [512, 2048] {str(dtype)[6:]}: max abs err {err:.3e}")
+        # the SSM path's widths (another block size each): mamba2-130m's
+        # d_model 768 and gated-norm 1536, zamba2-2.7b's 2560 and 5120, at a
+        # fused chunk's 512 rows and a decode step's 8
+        for d in (768, 1536, 2560, 5120):
+            for nrows in (512, 8):
+                x, w = rms_inputs(dev, dtype, rows=nrows, d=d)
+                err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
+                errs[("rmsnorm", f"rows{nrows}_d{d}", dtype)] = err
+                log(f"[check] rmsnorm [{nrows}, {d}] {str(dtype)[6:]}: max abs err {err:.3e}")
         # qwen2-moe's attention: head dim 128, no GQA
         for case, (inp, extra) in flash_cases(dev, dtype, MOE).items():
             out = run_flash(fa.flash_attention, inp, extra)
@@ -412,6 +451,26 @@ def phase_check(dev) -> dict:
             log(f"[check] flash_attention_paged d128 {case} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}; vs the dense kernel on the gathered view: max abs diff "
                 f"{(out.float() - dense.float()).abs().max().item():.3e}")
+        # zamba2-2.7b's shared attention: head dim 80, no GQA (the 8-lane
+        # decode tile); every output dim held to the plain version
+        for case, (inp, extra) in flash_cases(dev, dtype, ZAMBA).items():
+            out = run_flash(fa.flash_attention, inp, extra)
+            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash d80 {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention", "d80_" + case, dtype)] = err
+            log(f"[check] flash_attention d80 {case} {str(dtype)[6:]}: max abs err {err:.3e}")
+        for case, (inp, extra) in paged_cases(dev, dtype, ZAMBA).items():
+            out = run_paged(fa.flash_attention_paged, inp, extra)
+            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
+            dense = run_flash(fa.flash_attention, gathered(inp), extra)
+            if not torch.equal(out, dense):
+                raise AssertionError(f"flash_paged d80 {case}: differs from the dense kernel "
+                                     "on the gathered view")
+            errs[("flash_attention_paged", "d80_" + case, dtype)] = err
+            log(f"[check] flash_attention_paged d80 {case} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}; equal to the dense kernel on the gathered view")
         for case, inp in gg_cases(dev, dtype).items():
             out = run_gg(gg.grouped_gemm, inp)
             err = within(out, run_gg(gg.grouped_gemm_plain, inp))
@@ -576,6 +635,13 @@ def phase_trace(eng, cfg, dev, tag="[trace]") -> None:
             eng.step()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    report_trace(prof, wall, tag, "16 engine steps")
+    eng.run_until_drained()
+
+
+def report_trace(prof, wall, tag, what) -> None:
+    """Device time by kernel (device-side rows only) and the card's idle
+    share of ``wall``."""
     rows = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): a CPU op's row repeats
@@ -588,12 +654,16 @@ def phase_trace(eng, cfg, dev, tag="[trace]") -> None:
         if dt > 0:
             rows.append((dt, e.key, e.count))
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"{tag} 16 engine steps: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
+    log(f"{tag} {what}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
         f"device idle share {1 - busy / wall:.3f}" if rows else
         f"{tag} the profiler recorded no device time: not measured")
     for dt, key, n in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
-    eng.run_until_drained()
+    # copies (cache writes among them), wherever they rank
+    copies = sorted(r for r in rows if "Memcpy" in r[1] or "direct_copy" in r[1])[::-1]
+    if copies:
+        log(f"{tag}   copies: " + "; ".join(f"{key[:40]} {dt / 1e3:.3f} ms x{n}"
+                                           for dt, key, n in copies))
 
 
 def phase_parity(dev, arch=LLAMA) -> None:
@@ -801,6 +871,428 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
     free_card()
     return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s,
             "dense_tok_s": dense_tok_s}
+
+# ---------------------------------------------------------------- SSM/hybrid
+# the SSD heads of each model: (H, P, N, G); chunk 128 for both
+SSD_HEADS = {MAMBA: dict(h=24, p=64, n=128, g=1), ZAMBA: dict(h=80, p=64, n=64, g=1)}
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}   # max err / max |ref|
+
+
+def rel_err(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-9)).item()
+
+
+def ssd_inputs(dev, dtype, *, b, s, h, p, g, n, init, seed=SEED):
+    """The reference kernel test's distributions (x, B, C standard normal;
+    dt = |N|·0.1 + 0.01; A = −(|N| + 0.5)), drawn on the card; an fp32
+    standard-normal initial state when ``init``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = torch.randn(b, s, h, generator=gen, device=dev).abs() * 0.1 + 0.01
+    a = -(torch.randn(h, generator=gen, device=dev).abs() + 0.5)
+    bm = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    st = torch.randn(b, h, p, n, generator=gen, device=dev) if init else None
+    return [x, dt, a, bm, cm], st
+
+
+def check_ssd_case(name, dtype, args, st, chunk, errs) -> None:
+    y, fin = ssd.ssd_scan(*args, chunk, st)
+    yr, fr = ssd.ssd_scan_plain(*args, chunk, st)
+    torch.cuda.synchronize()
+    ey, es = rel_err(y, yr), rel_err(fin, fr)
+    if not (ey < SSD_TOL[dtype] and es < SSD_TOL[dtype]):
+        raise AssertionError(f"ssd_scan {name} {dtype}: y rel err {ey:.3e}, state {es:.3e}")
+    errs[("ssd_scan", name, dtype)] = (y.float() - yr.float()).abs().max().item()
+    log(f"[check-ssd] {name} {str(dtype)[6:]}: y max err / max |ref| {ey:.3e}, state {es:.3e}")
+
+
+def phase_check_ssd(dev) -> dict:
+    """The SSD kernel against its plain version, fp32 and bf16: the
+    reference test's shapes (G 2 and 4, S = 50 not a multiple of the
+    chunk), both models' heads at S = 1, 17, 64 and 200, from a zero and a
+    random initial state; and dt zeroed past per-row lengths (the fused
+    step's padding) must leave the state of the unpadded rows."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, g, n, chunk in ((2, 64, 4, 16, 1, 32, 16), (1, 128, 8, 64, 2, 64, 32),
+                                        (2, 50, 4, 16, 4, 32, 16)):
+            for init in (False, True):
+                args, st = ssd_inputs(dev, dtype, b=b, s=s, h=h, p=p, g=g, n=n, init=init)
+                check_ssd_case(f"B{b} S{s} H{h} P{p} G{g} N{n} chunk{chunk} init={init}", dtype,
+                               args, st, chunk, errs)
+        for arch, hk in SSD_HEADS.items():
+            for s in (1, 17, 64, 200):
+                for init in (False, True):
+                    args, st = ssd_inputs(dev, dtype, b=2, s=s, init=init, **hk)
+                    check_ssd_case(f"{arch} S{s} init={init}", dtype, args, st, 128, errs)
+        # fused chunk: 8 rows x 64 tokens, carried state (the timed shape)
+        for arch, hk in SSD_HEADS.items():
+            args, st = ssd_inputs(dev, dtype, b=8, s=64, init=True, **hk)
+            check_ssd_case(f"{arch}_fused_chunk", dtype, args, st, 128, errs)
+            # as the model runs it: the final state written over the initial
+            # one (the cache's own slice)
+            yr, fr = ssd.ssd_scan_plain(*args, 128, st)
+            y, fin = ssd.ssd_scan(*args, 128, st, out_state=st)
+            torch.cuda.synchronize(dev)
+            ey, es = rel_err(y, yr), rel_err(st, fr)
+            if not (fin.data_ptr() == st.data_ptr() and ey < SSD_TOL[dtype]
+                    and es < SSD_TOL[dtype]):
+                raise AssertionError(f"ssd_scan {arch} in place {dtype}: y rel err {ey:.3e}, "
+                                     f"state {es:.3e}")
+            log(f"[check-ssd] {arch}_fused_chunk in place {str(dtype)[6:]}: y max err / max "
+                f"|ref| {ey:.3e}, state {es:.3e}")
+        lens = [150, 37, 1, 0]
+        args, st = ssd_inputs(dev, dtype, b=4, s=150, init=True, **SSD_HEADS[MAMBA])
+        keep = torch.arange(150, device=dev)[None, :, None] < torch.tensor(
+            lens, device=dev)[:, None, None]
+        args[1] = args[1] * keep
+        _, fin = ssd.ssd_scan(*args, 128, st)
+        worst = 0.0
+        for bi, n in enumerate(lens):
+            ref = st[bi]
+            if n:
+                row = [t[bi:bi + 1, :n].contiguous() for t in (args[0], args[1], args[3], args[4])]
+                ref = ssd.ssd_scan(row[0], row[1], args[2], row[2], row[3], 128,
+                                   st[bi:bi + 1])[1][0]
+            worst = max(worst, rel_err(fin[bi], ref))
+        torch.cuda.synchronize(dev)
+        if not worst < SSD_TOL[dtype]:
+            raise AssertionError(f"ssd_scan masked rows {dtype}: state rel err {worst:.3e}")
+        log(f"[check-ssd] dt zeroed past lengths {lens} {str(dtype)[6:]}: final state vs the "
+            f"state at each length, max err / max |ref| {worst:.3e}")
+    return errs
+
+
+def ssm_prompts(cfg, *, n=8, seed=SEED):
+    """``n`` prompts of 100-600 tokens from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=int(m)).tolist()
+            for m in rng.integers(100, 601, size=n)]
+
+
+class FusedDriver:
+    """Model-level fused greedy serving, the mirror of
+    ``tests/test_fused_step.py::_fused_generate``: one ``fused_step`` per
+    step over every row — prefill rows stream their next ``chunk`` tokens,
+    decode rows feed their last token, finished rows idle at ``q_len = 0``
+    — with S = 1 once every row decodes.  Each step's kernel launches are
+    kept beside its S."""
+
+    def __init__(self, model, params, prompts, max_new, dev, *, chunk=64, max_len=2048):
+        self.model, self.params, self.prompts = model, params, prompts
+        self.max_new, self.chunk, self.dev = max_new, chunk, dev
+        b = len(prompts)
+        self.caches = model.init_cache(b, max_len, dev)
+        self.done = [0] * b
+        self.out = [[] for _ in range(b)]
+        self.finished = [False] * b
+        self.steps = []          # (S, {kernel: launches}) per forward
+
+    def step(self) -> None:
+        b = len(self.prompts)
+        live = [i for i in range(b) if not self.finished[i]]
+        s = self.chunk if any(self.done[i] < len(self.prompts[i]) for i in live) else 1
+        toks = np.zeros((b, s), np.int32)
+        q_lens = np.zeros(b, np.int32)
+        cache_pos = np.zeros(b, np.int32)
+        pf = {}
+        for i in live:
+            if self.done[i] < len(self.prompts[i]):
+                n = min(self.chunk, len(self.prompts[i]) - self.done[i])
+                toks[i, :n] = self.prompts[i][self.done[i]:self.done[i] + n]
+                q_lens[i], cache_pos[i], pf[i] = n, self.done[i], n
+            else:
+                toks[i, 0] = self.out[i][-1]
+                q_lens[i] = 1
+                cache_pos[i] = len(self.prompts[i]) + len(self.out[i]) - 1
+        before = counts()
+        logits, self.caches = self.model.fused_step(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.dev)}, self.caches,
+            cache_pos, q_lens)
+        nxt = logits.argmax(-1).cpu().numpy()
+        after = counts()
+        self.steps.append((s, {k: after[k] - before[k] for k in after}))
+        for i in live:
+            if i in pf:
+                self.done[i] += pf[i]
+                if self.done[i] == len(self.prompts[i]):
+                    self.out[i].append(int(nxt[i, pf[i] - 1]))
+            else:
+                self.out[i].append(int(nxt[i, 0]))
+            self.finished[i] = len(self.out[i]) >= self.max_new
+
+    def run(self):
+        while not all(self.finished):
+            self.step()
+        return self.out
+
+
+def check_forwards(steps, cfg, what, *, kernels=True) -> None:
+    """Every forward launched RMSNorm 2 per Mamba layer (+ 2 per shared
+    block occurrence) + 1, the SSD kernel once per Mamba layer when S > 1
+    and never at S = 1, and (hybrid) one flash kernel per occurrence;
+    without kernels, nothing."""
+    n_shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    for s, d in steps:
+        want = {"rmsnorm": 2 * cfg.n_layers + 2 * n_shared + 1,
+                "ssd_scan": cfg.n_layers if s > 1 else 0, "flash_attention": n_shared}
+        if not kernels:
+            want = {k: 0 for k in want}
+        other = {k: v for k, v in d.items() if k not in want and v}
+        if any(d[k] != v for k, v in want.items()) or other:
+            raise AssertionError(f"{what}: a forward at S={s} launched {d}, not {want}")
+
+
+def phase_serve_ssm(dev, arch) -> dict:
+    """Full width, bf16, random weights from a seed: the fused driver over
+    8 requests of 100-600 prompt tokens (numpy seed 0), 32 new tokens
+    each, chunks of 64, max_len 2048, three runs with fresh caches."""
+    tag = "[serve-ssm]"
+    cfg = full_cfg(arch)
+    model = build_model(cfg)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"{tag} {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters; card memory allocated after init {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+        f"GB; host: {host_line()}")
+    prompts = ssm_prompts(cfg)
+    tok_s, first, launches = [], None, None
+    for rep in range(ENGINE_REPEATS):
+        drv = FusedDriver(model, params, prompts, 32, dev)
+        if rep == 0:
+            log(f"{tag} {arch}: caches allocated, card memory "
+                f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = drv.run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = counts()
+        require(got, ("rmsnorm", "ssd_scan") + (("flash_attention",) if arch == ZAMBA else ()),
+                f"{arch} serve")
+        check_forwards(drv.steps, cfg, f"{arch} serve")
+        for o in out:
+            if not (len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)):
+                raise AssertionError(f"{arch}: a request was not served right: {o}")
+        toks = sum(len(o) for o in out)
+        tok_s.append(toks / wall)
+        same = "" if first is None else f", tokens as run 1: {out == first}"
+        first = first or out
+        launches = launches or got
+        n_big = sum(1 for s, _ in drv.steps if s > 1)
+        log(f"{tag} {arch} run {rep + 1}/{ENGINE_REPEATS}: 8 requests, "
+            f"{sum(map(len, prompts))} prompt tokens, {toks} generated in {wall:.3f}s = "
+            f"{toks / wall:.1f} generated tok/s; {len(drv.steps)} forwards ({n_big} at S=64); "
+            f"launches {got}{same}")
+    log(f"{tag} {arch} gen tok/s over {ENGINE_REPEATS} runs: {[round(x, 1) for x in tok_s]}; "
+        f"peak card memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del params
+    free_card()
+    return {"cli": launches, "tok_s": tok_s,
+            "per_forward": {k: v for k, v in drv.steps[0][1].items()}}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def greedy(model, params, prompt, max_new, dev, *, page_tokens=None, max_len=2048):
+    """One request alone: ``prefill_chunked`` (64-token chunks), then
+    ``decode_step``; dense KV, or page pools through a ``KVPool`` table (as
+    ``tests/test_paged_kv.py::_greedy_paged``)."""
+    kw, table = {}, None
+    if page_tokens is not None:
+        pool = KVPool(1, max_len, page_tokens, prefix_sharing=False)
+        pool.alloc_sequence(0, list(prompt), min(len(prompt) + max_new, max_len))
+        table = torch.from_numpy(pool.table_array()).to(dev)
+        kw = dict(caches=model.init_paged_cache(pool.num_pages, page_tokens, 1, dev),
+                  page_table=table)
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32, device=dev)}
+    logits, caches = model.prefill_chunked(params, batch, max_len, chunk=64, **kw)
+    toks = [int(logits[0].argmax())]
+    pos = len(prompt)
+    while len(toks) < max_new:
+        logits, caches = model.decode_step(
+            params, {"tokens": torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)},
+            caches, torch.tensor(pos), page_table=table)
+        toks.append(int(logits[0].argmax()))
+        pos += 1
+    return toks
+
+
+# a bf16 argmax flip is accepted only where the plain logits tie: their
+# top logit exceeds the flipped-to logit by at most this many steps of bf16
+# (2^(e-7) for logits of magnitude in [2^e, 2^(e+1))) at the logit scale
+BF16_TIE_ULPS = 2
+
+
+def bf16_tie_bound(scale: float) -> float:
+    """The widest plain-logit gap still counted as a bf16 tie: fixed by
+    the logit scale, whatever the two paths' measured difference."""
+    return BF16_TIE_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def argmax_ties(got, ref) -> list:
+    """Rows whose argmax differs between ``got`` and ``ref`` [rows, V],
+    each as (row, gap): ``ref``'s top logit minus its logit at ``got``'s
+    argmax."""
+    g = got.argmax(-1)
+    gap = ref.max(-1).values - ref.gather(-1, g[:, None])[:, 0]
+    return [(i, gap[i].item()) for i in range(ref.shape[0]) if g[i] != ref[i].argmax()]
+
+
+def top2_gaps(logits) -> list:
+    top = logits.topk(2, dim=-1).values
+    return [round(x, 4) for x in (top[:, 0] - top[:, 1]).tolist()]
+
+
+def phase_parity_ssm(dev) -> dict:
+    """fp32 kernels vs plain versions (identical greedy tokens over the
+    driver's traffic: mamba2 at full depth, zamba2 at one full-width
+    segment); bf16 full depth, one [2, 300] prefill, kernels vs plain
+    (last-token logits within 0.1 of the plain path's logit scale; the
+    same argmax, except where the plain path's top logit exceeds its
+    logit at the kernels' argmax by at most ``BF16_TIE_ULPS`` bf16 steps
+    at the logit scale — a tie in the stored logits, reported with its
+    gap) and prefill_chunked(64) vs prefill (the same argmax test); zamba2
+    paged (P = 64) vs dense, bf16 full depth, identical greedy tokens."""
+    tag = "[parity-ssm]"
+    for arch, kw in ((MAMBA, {}), (ZAMBA, {"n_layers": 6})):
+        tokens = {}
+        for impl in ("pallas", "naive"):
+            cfg = full_cfg(arch, dtype="float32", attention_impl=impl, **kw)
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+            drv = FusedDriver(model, params, ssm_prompts(cfg, seed=SEED + 1), 32, dev)
+            reset_counts()
+            tokens[impl] = drv.run()
+            check_forwards(drv.steps, cfg, f"{arch} fp32 parity {impl}", kernels=impl == "pallas")
+            log(f"{tag} {arch} fp32 {cfg.n_layers} layers impl={impl}: {len(drv.steps)} forwards, "
+                f"launches {counts()}")
+            del params, drv
+            free_card()
+        if tokens["pallas"] != tokens["naive"]:
+            raise AssertionError(f"{arch}: fp32 greedy tokens differ between kernel and plain")
+        log(f"{tag} {arch} fp32: greedy tokens identical, kernels vs plain, over 8 requests x 32 "
+            "steps")
+
+    paged_launches = None
+    for arch in (MAMBA, ZAMBA):
+        cfg = full_cfg(arch)
+        params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 300), device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(1))}
+        logits = {}
+        for impl in ("pallas", "naive"):
+            m = build_model(dataclasses.replace(cfg, attention_impl=impl))
+            logits[impl] = m.prefill(params, batch, 512)[0].float()
+        chunked = build_model(cfg).prefill_chunked(params, batch, 512, chunk=64)[0].float()
+        torch.cuda.synchronize(dev)
+        diff = (logits["pallas"] - logits["naive"]).abs().max().item()
+        diff_chunked = (chunked - logits["pallas"]).abs().max().item()
+        scale = logits["naive"].abs().max().item()
+        if not torch.isfinite(logits["pallas"]).all():
+            raise AssertionError(f"{arch}: bf16 full-depth logits are not finite")
+        flips = argmax_ties(logits["pallas"], logits["naive"])
+        flips_chunked = argmax_ties(chunked, logits["pallas"])
+        tie = bf16_tie_bound(scale)
+        log(f"{tag} {arch} bf16 {cfg.n_layers} layers prefill [2, 300]: last-token logit max abs "
+            f"diff kernels vs plain {diff:.4f} (logit scale {scale:.3f}, bound {0.1 * scale:.4f}); "
+            f"plain top-2 gaps {top2_gaps(logits['naive'])}; argmax flips (row, plain gap) {flips}; "
+            f"prefill_chunked(64) vs prefill: max abs diff {diff_chunked:.4f}, argmax flips "
+            f"{flips_chunked}; a flip passes only at a gap <= {tie:.6f} ({BF16_TIE_ULPS} bf16 "
+            f"steps at the logit scale)")
+        if not (diff <= 0.1 * scale and all(gap <= tie for _, gap in flips + flips_chunked)):
+            raise AssertionError(f"{arch}: bf16 parity failed")
+        if arch == ZAMBA:
+            prompt = ssm_prompts(cfg, n=1, seed=SEED + 4)[0]
+            model = build_model(cfg)
+            dense = greedy(model, params, prompt, 32, dev)
+            reset_counts()
+            paged = greedy(model, params, prompt, 32, dev, page_tokens=64)
+            paged_launches = counts()
+            require(paged_launches, ("flash_attention_paged", "ssd_scan", "rmsnorm"),
+                    "zamba2 paged")
+            if paged_launches["flash_attention"]:
+                raise AssertionError("the paged zamba2 run went through the dense flash kernel")
+            if paged != dense:
+                raise AssertionError(f"zamba2 paged tokens differ from dense: {paged} vs {dense}")
+            log(f"{tag} zamba2 bf16 {cfg.n_layers} layers, {len(prompt)}-token prompt, pages of 64: paged "
+                f"greedy tokens identical to dense over 32 steps; paged launches {paged_launches}")
+        del params
+        free_card()
+    return {"paged_cli": paged_launches}
+
+
+def phase_trace_ssm(dev) -> None:
+    """Where a zamba2 serve step's time goes: a profiler trace of 16 steps
+    of the fused driver (after one untraced step), device time by kernel
+    and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = full_cfg(ZAMBA)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    drv = FusedDriver(model, params, ssm_prompts(cfg, seed=SEED + 2), 64, dev)
+    drv.step()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(16):
+            drv.step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    n_big = sum(1 for s, _ in drv.steps[1:] if s > 1)
+    report_trace(prof, wall, "[trace-ssm]", f"zamba2 16 driver steps ({n_big} at S=64)")
+    del params, drv
+    free_card()
+
+
+def ssd_work(args, st, chunk) -> tuple:
+    """Bytes the scan must move (x read, y written, B and C, dt, A, the
+    fp32 state read and written) and flops it must do,
+    2·L²·N + 2·L²·P + 4·L·N·P per (row, head, chunk of L tokens)."""
+    x, dt, a, bm, cm = args
+    b, s, h, p = x.shape
+    n = bm.shape[3]
+    es = x.element_size()
+    byts = (2 * x.numel() * es + (bm.numel() + cm.numel()) * es + dt.numel() * 4 + a.numel() * 4
+            + b * h * p * n * 4 * (2 if st is not None else 1))
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    flops = b * h * sum(2 * L * L * n + 2 * L * L * p + 4 * L * n * p for L in lens)
+    return byts, flops
+
+
+def time_ssd(dev, flush, rows, dtype) -> None:
+    """The SSD kernel at each model's fused-chunk shape (8 rows x 64 tokens,
+    chunk 128, carried state updated in place as the model does), L2
+    flushed before each call; no single
+    PyTorch call computes the scan, so there is no library time."""
+    for arch, hk in SSD_HEADS.items():
+        args, st = ssd_inputs(dev, dtype, b=8, s=64, init=True, **hk)
+        byts, flops = ssd_work(args, st, 128)
+        b_ms, b_by = bound(byts, flops, dtype)
+        r = rows[("ssd_scan", f"{arch}_fused_chunk")] = dict(
+            ms=time_ms(dev, lambda: ssd.ssd_scan(*args, 128, st, out_state=st), flush=flush),
+            plain_ms=time_ms(dev, lambda: ssd.ssd_scan_plain(*args, 128, st), iters=10,
+                             flush=flush),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops,
+        )
+        log(f"[time] ssd_scan {arch} fused chunk bf16 x {tuple(args[0].shape)} B/C "
+            f"{tuple(args[3].shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library none, bound {b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP), kernel/bound {r['ms'] / b_ms:.1f}x")
 
 
 def time_ms(dev, fn, *, iters=50, flush=None) -> float:
@@ -1010,6 +1502,8 @@ def phase_time(dev) -> dict:
         )
     time_flash(dev, flush, rows, MOE, "d128_", dtype)
     time_paged(dev, flush, rows, MOE, "d128_", dtype)
+    time_flash(dev, flush, rows, ZAMBA, "d80_", dtype)
+    time_paged(dev, flush, rows, ZAMBA, "d80_", dtype)
     for (name, case), r in rows.items():
         if name == "flash_attention_paged":
             continue
@@ -1018,6 +1512,7 @@ def phase_time(dev) -> dict:
             f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
     time_gg(dev, flush, rows, dtype)
+    time_ssd(dev, flush, rows, dtype)
     del flush
     return rows
 
@@ -1028,6 +1523,7 @@ def main() -> int:
     dev = card["dev"]
     phase_build()
     errs = phase_check(dev)
+    errs.update(phase_check_ssd(dev))
     served = phase_serve(dev)
     phase_parity(dev)
     phase_parity_paged(dev)
@@ -1035,6 +1531,10 @@ def main() -> int:
     phase_parity(dev, MOE)
     served_moe = phase_serve(dev, MOE)
     served_moe_paged = phase_serve_paged(dev, MOE)
+    served_mamba = phase_serve_ssm(dev, MAMBA)
+    served_zamba = phase_serve_ssm(dev, ZAMBA)
+    parity_ssm = phase_parity_ssm(dev)
+    phase_trace_ssm(dev)
     times = phase_time(dev)
 
     kernels = []
@@ -1073,9 +1573,35 @@ def main() -> int:
                 "library_ms": t128["library_ms"],
                 "max_abs_err": errs[(name, "d128_" + err_case, torch.bfloat16)],
             }
+            # the head-dim-80 instance, on zamba2's shared attention
+            t80 = times[(name, "d80_fused_chunk")]
+            row["d80"] = {
+                "launches": (parity_ssm["paged_cli"] if name.endswith("paged")
+                             else served_zamba["cli"])[name],
+                "ms": t80["ms"], "plain_ms": t80["plain_ms"], "bound_ms": t80["bound_ms"],
+                "bound_by": t80["bound_by"], "library_ms": t80["library_ms"],
+                "max_abs_err": errs[(name, "d80_" + err_case, torch.bfloat16)],
+            }
         if name == "grouped_gemm":
             row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name])
         kernels.append(row)
+    t_m, t_z = (times[("ssd_scan", f"{a}_fused_chunk")] for a in (MAMBA, ZAMBA))
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:31",
+        "launches": served_mamba["cli"]["ssd_scan"],
+        "max_abs_err": errs[("ssd_scan", f"{MAMBA}_fused_chunk", torch.bfloat16)],
+        "ms": t_m["ms"], "plain_ms": t_m["plain_ms"], "bound_ms": t_m["bound_ms"],
+        "bound_by": t_m["bound_by"], "library_ms": None, "shape": "mamba2_fused_chunk",
+        "launches_per_forward": served_mamba["per_forward"]["ssd_scan"],
+        "zamba2": {
+            "launches": served_zamba["cli"]["ssd_scan"],
+            "launches_per_forward": served_zamba["per_forward"]["ssd_scan"],
+            "ms": t_z["ms"], "plain_ms": t_z["plain_ms"], "bound_ms": t_z["bound_ms"],
+            "bound_by": t_z["bound_by"], "library_ms": None,
+            "max_abs_err": errs[("ssd_scan", f"{ZAMBA}_fused_chunk", torch.bfloat16)],
+        },
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card["smi"])
     print(json.dumps({"kernels": kernels}))

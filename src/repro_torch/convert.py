@@ -3,9 +3,9 @@ fresh at the reference's init distributions.
 
 Both give the layout :class:`~repro_torch.serving.stage_executor.StageExecutor`
 and :mod:`repro_torch.models.transformer` take — the reference's keys, one
-dict per layer under ``"layers"``, weights in the reference's ``x @ w``
-orientation (``[d_in, d_out]``), norm weights fp32 in offset form — so a
-conversion is a copy.
+dict per layer under ``"layers"`` (and the hybrid's ``"mamba_layers"``),
+weights in the reference's ``x @ w`` orientation (``[d_in, d_out]``), norm
+weights fp32 in offset form — so a conversion is a copy.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.ssm import mamba2_dims
 from repro_torch.models.transformer import check_family, torch_dtype
 
 Params = Dict[str, Any]
@@ -33,9 +34,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 def params_from_jax(tree, device=None) -> Params:
     """Convert a reference param pytree (arrays, or numpy copies of them)
     into nested dicts of tensors with the same keys and dtypes, on
-    ``device`` (default: the first card).  Stacked layer params
-    (``scan_layers=True``: one dict of ``[L, ...]`` arrays) are split into
-    the per-layer list the port serves from."""
+    ``device`` (default: the first card).  Stacked layer params (one dict of
+    ``[L, ...]`` arrays: ``layers`` at ``scan_layers=True``, and the
+    hybrid's ``mamba_layers`` always) are split into the per-layer lists the
+    port serves from."""
     device = resolve_device(device)
 
     def conv(node):
@@ -46,10 +48,11 @@ def params_from_jax(tree, device=None) -> Params:
         return _to_tensor(node, device)
 
     out = conv(dict(tree))
-    layers = out.get("layers")
-    if isinstance(layers, dict):
-        n = next(iter(_leaves(layers))).shape[0]
-        out["layers"] = [_index(layers, i) for i in range(n)]
+    for key in ("layers", "mamba_layers"):
+        layers = out.get(key)
+        if isinstance(layers, dict):
+            n = next(iter(_leaves(layers))).shape[0]
+            out[key] = [_index(layers, i) for i in range(n)]
     return out
 
 
@@ -68,13 +71,18 @@ def _index(node, i):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Params:
-    """Fresh decoder params (dense or MoE) at the reference's
+    """Fresh decoder params (dense, MoE, SSM or hybrid) at the reference's
     distributions: dense weights ``normal · 1/√d_in``, embeddings
     ``normal · 0.02``, norms zero (offset form, fp32); an MoE layer's router
     fp32 ``[d, E_pad]`` at ``1/√d``, its experts ``w_gate``/``w_up``
     ``[E_pad, d, f]`` at ``1/√d`` and ``w_down`` ``[E_pad, f, d]`` at
     ``1/√f``, with arctic's parallel dense FFN (``mlp``) and qwen2-moe's
-    merged shared experts (``shared_mlp``) as dense MLPs.  Drawn in fp32 on
+    merged shared experts (``shared_mlp``) as dense MLPs.  A Mamba2 layer
+    (``{"ln", "mamba"}``) has its projections at ``1/√d_in``, depthwise
+    conv weights ``normal · 0.1`` and zero conv biases in ``cfg.dtype``,
+    and fp32 ``A_log = log(linspace(1, 16, H))``, ``D = 1`` and
+    ``dt_bias = log(expm1(0.01))``; the hybrid adds ``shared_proj_in``
+    ``[2d, d]`` and one shared attention block.  Drawn in fp32 on
     ``generator``'s device, then cast to ``cfg.dtype`` on ``device``
     (default: the first card) — no JAX needed."""
     check_family(cfg)
@@ -133,9 +141,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
             p["mlp"] = mlp(cfg.d_ff)
         return p
 
+    def mamba_layer():
+        dims = mamba2_dims(cfg)
+        d, di, nh = cfg.d_model, dims["d_inner"], dims["nheads"]
+        gn = cfg.ngroups * cfg.ssm_state
+        zeros = lambda n: torch.zeros((n,), dtype=dt, device=device)  # noqa: E731
+        m = {
+            "w_z": dense(d, di), "w_x": dense(d, di), "w_B": dense(d, gn),
+            "w_C": dense(d, gn), "w_dt": dense(d, nh),
+            "conv_x": normal((cfg.ssm_conv, di), 0.1),
+            "conv_B": normal((cfg.ssm_conv, gn), 0.1),
+            "conv_C": normal((cfg.ssm_conv, gn), 0.1),
+            "b_x": zeros(di), "b_B": zeros(gn), "b_C": zeros(gn),
+            "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32)).to(device),
+            "D": torch.ones((nh,), dtype=torch.float32, device=device),
+            "dt_bias": torch.log(torch.expm1(torch.full((nh,), 0.01))).to(device),
+            "norm_w": norm(di),
+            "out_proj": dense(di, d),
+        }
+        return {"ln": norm(d), "mamba": m}
+
     p: Params = {"embed": normal((cfg.vocab_size, cfg.d_model), 0.02)}
     p["ln_final"] = norm(cfg.d_model)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
-    p["layers"] = [layer() for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        p["mamba_layers"] = [mamba_layer() for _ in range(cfg.n_layers)]
+        # one SHARED attention block (weights reused at every occurrence)
+        p["shared_proj_in"] = dense(2 * cfg.d_model, cfg.d_model)
+        p["shared_block"] = layer()
+    elif cfg.family == "ssm":
+        p["layers"] = [mamba_layer() for _ in range(cfg.n_layers)]
+    else:
+        p["layers"] = [layer() for _ in range(cfg.n_layers)]
     return p

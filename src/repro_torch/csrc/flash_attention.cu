@@ -39,7 +39,10 @@
 // rows) four lanes own one query row: each scores 16 keys of the tile and
 // accumulates D/4 output dims (16 at D = 64, 32 at D = 128); a decode tile
 // has 4 rows of 16 lanes, 4 keys and D/16 dims a lane, so no lane idles on
-// the few rows of a decode step with rep >= 4 (llama3.2-1b's GQA).  Without
+// the few rows of a decode step with rep >= 4 (llama3.2-1b's GQA); at
+// D = 80 it has 4 rows of 8 lanes, 8 keys and 10 dims a lane, since 16
+// lanes would leave each an odd 5 dims and the pairwise P·V loop needs
+// whole pairs (a static_assert holds every instance to that).  Without
 // GQA (rep = 1, qwen2-moe) a decode step has one row per (b, KV head), and
 // three of the tile's four rows idle: a known waste, not yet addressed.  Row max and sum are reduced across a row's lanes with shuffles,
 // and the probabilities are exchanged by shuffle for the P·V product.  The
@@ -135,6 +138,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  T* __restrict__ out, const int* __restrict__ q_offsets,
                  const int* __restrict__ q_lens, int Sq, int H, Addr addr, int KV, float scale,
                  int causal, int window, float softcap, int k_len) {
+  // each lane owns DPT/2 dim pairs 2*(i*TPR + t): D must split into whole
+  // pairs per lane, or the dims past the last pair are never accumulated
+  // nor written
+  static_assert(D % (2 * TPR) == 0, "head dim must be a multiple of 2 * lanes per row");
+  static_assert(BK % TPR == 0, "key tile must split evenly over a row's lanes");
   constexpr int KPT = BK / TPR;             // keys scored per thread per tile
   constexpr int DPT = D / TPR;              // output dims accumulated per thread
   constexpr int LDQ = D + 1;                // fp32 Q row, padded
@@ -337,16 +345,20 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out,
                   cudaStream_t stream) {
   // decode batches carry only rep rows per (b, KV head): 4-row tiles with
   // 16 lanes a row keep every lane busy; prefill chunks take 64-row tiles
-  // with 4 lanes a row
+  // with 4 lanes a row.  A head dim that is not a multiple of 32 (80:
+  // zamba2-2.7b) takes 8 lanes a decode row, so each lane owns whole dim
+  // pairs (D % (2 * lanes) == 0)
+  constexpr int DEC_TPR = D % 32 == 0 ? 16 : 8;
   if (Sq * (H / KV) <= 16)
-    return launch<T, D, 4, 16>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
-                               causal, window, softcap, k_len, stream);
+    return launch<T, D, 4, DEC_TPR>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
+                                    causal, window, softcap, k_len, stream);
   return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
                              causal, window, softcap, k_len, stream);
 }
 
-// the instances built: head dim 64 (llama3.2-1b) and 128 (qwen2-moe-a2.7b),
-// each in fp32 and bf16; any other (D, dtype) returns cudaErrorInvalidValue
+// the instances built: head dim 64 (llama3.2-1b), 80 (zamba2-2.7b's shared
+// attention) and 128 (qwen2-moe-a2.7b), each in fp32 and bf16; any other
+// (D, dtype) returns cudaErrorInvalidValue
 template <typename Addr>
 int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
                       const int* q_offsets, const int* q_lens, int B, int Sq, int H, int D,
@@ -357,6 +369,8 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
                                causal, window, softcap, k_len, s)
   if (D == 64 && dtype == 0) FLASH_INSTANCE(float, 64);
   if (D == 64 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 64);
+  if (D == 80 && dtype == 0) FLASH_INSTANCE(float, 80);
+  if (D == 80 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 80);
   if (D == 128 && dtype == 0) FLASH_INSTANCE(float, 128);
   if (D == 128 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 128);
 #undef FLASH_INSTANCE
@@ -367,8 +381,8 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  q_offsets
 // and q_lens are device int32 [B].  window <= 0 and softcap <= 0 disable
-// them.  Built for head dims 64 (llama3.2-1b) and 128 (qwen2-moe-a2.7b);
-// other head dims come with the configs that need them.  Returns a
+// them.  Built for head dims 64 (llama3.2-1b), 80 (zamba2-2.7b) and 128
+// (qwen2-moe-a2.7b); other head dims come with the configs that need them.  Returns a
 // cudaError_t (0 = success); a shape the kernel does not take returns
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,

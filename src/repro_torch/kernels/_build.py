@@ -25,7 +25,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm.cu", "flash_attention.cu", "grouped_gemm.cu")
+SOURCES = ("rmsnorm.cu", "flash_attention.cu", "grouped_gemm.cu", "ssd_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,6 +125,13 @@ def load() -> ctypes.CDLL:
         _P,                                # stream
     ]
     lib.grouped_gemm_fwd.restype = _I
+    lib.ssd_scan_fwd.argtypes = [
+        _P, _P, _P, _P, _P, _P,            # x, dt, A, B, C, init_state (or null)
+        _P, _P,                            # y, final_state
+        _I, _I, _I, _I, _I, _I, _I, _I,    # B, S, H, P, G, N, chunk, dtype
+        _P,                                # stream
+    ]
+    lib.ssd_scan_fwd.restype = _I
     _lib = lib
     return lib
 

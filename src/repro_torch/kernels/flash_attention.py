@@ -36,10 +36,10 @@ launches = 0
 paged_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernel is built for: llama3.2-1b's (64) and
-# qwen2-moe-a2.7b's (128); the others come with the slices of the configs
-# that need them
-_HEAD_DIMS = (64, 128)
+# head dims the kernel is built for: llama3.2-1b's (64), zamba2-2.7b's
+# shared attention (80) and qwen2-moe-a2.7b's (128); the others come with
+# the slices of the configs that need them
+_HEAD_DIMS = (64, 80, 128)
 
 
 def attn_mask(q_pos, k_pos, causal: bool, window: Optional[int]) -> torch.Tensor:

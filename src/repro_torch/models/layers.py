@@ -55,9 +55,9 @@ def rmsnorm(
 
 
 def uses_kernels(cfg: ModelConfig) -> bool:
-    """``attention_impl="pallas"`` runs attention, every RMSNorm and the
-    MoE experts' grouped GEMMs through the port's CUDA kernels; the other
-    impls are plain PyTorch."""
+    """``attention_impl="pallas"`` runs attention, every RMSNorm, the MoE
+    experts' grouped GEMMs and the Mamba2 SSD scans through the port's
+    CUDA kernels; the other impls are plain PyTorch."""
     return cfg.attention_impl == "pallas"
 
 

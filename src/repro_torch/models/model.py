@@ -1,6 +1,9 @@
 """Model façade: ``build_model(cfg)`` returns a ``Model`` with uniform entry
-points, so the engine never branches on family.  The dense and MoE
-families are ported; the others raise ``NotImplementedError`` here."""
+points, so callers never branch on family.  The dense, MoE, SSM and hybrid
+families are ported; the others raise ``NotImplementedError`` here.  As in
+the reference, the SSM and hybrid families are served through these
+entry points only: the stage executor and the engine serve
+attention-family blocks."""
 
 from __future__ import annotations
 

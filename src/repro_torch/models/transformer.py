@@ -9,15 +9,25 @@ Family wiring:
 * moe — qwen2-moe-a2.7b (60 routed experts padded to 64, top-4, plus the
   shared experts merged into one FFN), arctic-480b (128 experts top-2 with
   a dense FFN in parallel): the routed experts go through
-  :func:`repro_torch.models.moe.moe_apply`.
+  :func:`repro_torch.models.moe.moe_apply`;
+* ssm — mamba2-130m (attention-free Mamba2 stack,
+  :mod:`repro_torch.models.ssm`);
+* hybrid — zamba2-2.7b (Mamba2 trunk in segments of ``shared_attn_every``
+  layers, each followed by one *shared-weight* attention block on
+  ``concat(hidden, embedding)``, each occurrence with its own KV cache).
 
-Parameters hold one dict per layer (``params["layers"]`` is a list), the
-serving layout, whatever ``cfg.scan_layers`` says; ``remat`` is a training
-knob and is ignored.  The KV cache is ``{"layers": {"k", "v"}}`` with one
+Parameters hold one dict per layer (``params["layers"]``, and the
+hybrid's ``params["mamba_layers"]``, are lists), the serving layout,
+whatever ``cfg.scan_layers`` says; ``remat`` is a training knob and is
+ignored.  The dense/MoE KV cache is ``{"layers": {"k", "v"}}`` with one
 ``[L, B, max_len, KV, hd]`` tensor each (dense) or one
 ``[L, num_pages + 1, P, KV, hd]`` page pool each (paged, with the page
-table passed to every forward as ``page_table``), updated in place.  The
-SSM, hybrid, VLM and enc-dec families raise ``NotImplementedError``.
+table passed to every forward as ``page_table``).  The SSM cache is
+``{"layers": {"conv_x", "conv_B", "conv_C", "ssm"}}`` stacked over the
+layers (not paged: the state is O(1) per slot); the hybrid's is
+``{"mamba": <that>, "attn": {"k", "v"}}`` with one dense row or page pool
+per shared-block occurrence.  Every cache is updated in place.  The VLM
+and enc-dec families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .layers import Params, uses_kernels, mlp, multihead_attention, rmsnorm, softcap
 from .moe import moe_apply
+from .ssm import layer_state, mamba2_block, stacked_init_state, store_state
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -41,10 +52,10 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families the port does not serve yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: only dense "
-            "and MoE decoders are (ROADMAP A10-A11)"
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: only dense, "
+            "MoE, SSM and hybrid decoders are (ROADMAP A11)"
         )
 
 
@@ -106,18 +117,31 @@ def block_apply(
 # --------------------------------------------------------------------------
 
 
+def _n_shared(cfg: ModelConfig) -> int:
+    """Occurrences of the hybrid's shared attention block."""
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def _zeros_kv(shape, dt, device) -> Dict[str, torch.Tensor]:
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
-    """Dense KV cache, zeros, on ``device`` (default: the first card)."""
+    """Dense cache, zeros, on ``device`` (default: the first card): KV rows,
+    the SSM family's recurrent state, or the hybrid's both."""
     check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = torch_dtype(cfg)
-    return {
-        "layers": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
+    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.family == "ssm":
+        return {"layers": stacked_init_state(cfg, batch, dt, device, cfg.n_layers)}
+    if cfg.family == "hybrid":
+        return {
+            "mamba": stacked_init_state(cfg, batch, dt, device, cfg.n_layers),
+            "attn": _zeros_kv((_n_shared(cfg),) + kv_shape, dt, device),
         }
-    }
+    return {"layers": _zeros_kv((cfg.n_layers,) + kv_shape, dt, device)}
 
 
 def init_paged_cache(
@@ -128,19 +152,23 @@ def init_paged_cache(
     the trash page that absorbs masked and out-of-range writes.  The
     per-slot page table is not part of the cache: it is host-owned
     (``serving.kv_pool``) and rides into each forward as ``page_table``.
-    ``batch`` is unused (pools are shared by every row); it is kept for the
-    reference's signature."""
-    del batch
+    For dense and MoE models ``batch`` is unused (pools are shared by every
+    row); it is kept for the reference's signature.  The SSM family's state
+    is not paged (it is O(1) per slot): its cache is :func:`init_cache`'s;
+    the hybrid pages only its shared-attention KV, and ``batch`` sizes its
+    Mamba state."""
     check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_pages + 1, page_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = torch_dtype(cfg)
-    return {
-        "layers": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
+    pool_shape = (num_pages + 1, page_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.family == "ssm":
+        return init_cache(cfg, batch, 0, device)
+    if cfg.family == "hybrid":
+        return {
+            "mamba": stacked_init_state(cfg, batch, dt, device, cfg.n_layers),
+            "attn": _zeros_kv((_n_shared(cfg),) + pool_shape, dt, device),
         }
-    }
+    return {"layers": _zeros_kv((cfg.n_layers,) + pool_shape, dt, device)}
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +218,57 @@ def _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens=None, page
     return x, caches
 
 
+def _mamba_layer(layer_p, x, cfg, stack, i, cont, q_lens):
+    """Pre-norm residual Mamba2 layer ``i``.  ``cont`` = continuation
+    (decode step or a chunked-prefill chunk): the recurrent state carries
+    in from ``stack`` and :func:`mamba2_block` picks the single-token or
+    the chunk path from the sequence length; otherwise a fresh prefill
+    (zero state).  The new state is written into ``stack`` in place (the
+    scan writes its final state straight into the layer's slice)."""
+    kernels = uses_kernels(cfg)
+    out, new_state = mamba2_block(
+        layer_p["mamba"], rmsnorm(x, layer_p["ln"], kernel=kernels), cfg,
+        state=layer_state(stack, i) if cont else None,
+        seq_lens=q_lens if cont else None, kernel=kernels, ssm_out=stack["ssm"][i],
+    )
+    store_state(stack, i, new_state)
+    return x + out
+
+
+def _ssm_stack(params, x, cfg, caches, cache_pos=None, q_lens=None):
+    """Loop over Mamba2 layers; ``cache_pos`` given = continuation, ``None``
+    = fresh whole-prompt prefill."""
+    for i, layer_p in enumerate(params["layers"]):
+        x = _mamba_layer(layer_p, x, cfg, caches["layers"], i, cache_pos is not None, q_lens)
+    return x, caches
+
+
+def _hybrid_stack(params, x, x_embed, cfg, positions, caches, cache_pos, q_lens=None,
+                  page_table=None):
+    """Zamba2: the Mamba2 trunk in segments of ``shared_attn_every`` layers,
+    each followed by the shared attention block on ``concat(x, x_embed) @
+    shared_proj_in`` (full window, its own KV slot per occurrence, the page
+    table injected when paged).  ``cache_pos`` as :func:`_ssm_stack`; a
+    fresh prefill writes its KV from position 0."""
+    every = cfg.shared_attn_every
+    cont = cache_pos is not None
+    attn_pos = cache_pos if cont else torch.zeros((), dtype=torch.int32, device=x.device)
+    for seg in range(_n_shared(cfg)):
+        for i in range(seg * every, (seg + 1) * every):
+            x = _mamba_layer(params["mamba_layers"][i], x, cfg, caches["mamba"], i, cont, q_lens)
+        u = torch.cat([x, x_embed], dim=-1) @ params["shared_proj_in"]
+        cache_i = {"k": caches["attn"]["k"][seg], "v": caches["attn"]["v"][seg]}
+        if page_table is not None:
+            cache_i["table"] = page_table
+        u, _ = block_apply(
+            params["shared_block"], u, cfg,
+            positions=positions, window=1 << 30,
+            kv_cache=cache_i, cache_pos=attn_pos, q_lens=q_lens,
+        )
+        x = x + u
+    return x, caches
+
+
 def forward(
     params: Params,
     batch: Dict[str, torch.Tensor],
@@ -218,9 +297,20 @@ def forward(
         q_lens = torch.as_tensor(q_lens).to(device=x.device, dtype=torch.int32)
     if page_table is not None:
         page_table = torch.as_tensor(page_table).to(device=x.device, dtype=torch.int32)
-    x, new_caches = _dense_stack(
-        params, x, cfg, positions, caches, cache_pos, q_lens, page_table
-    )
+    if cfg.family == "ssm":
+        if caches is None:
+            caches = init_cache(cfg, x.shape[0], 0, device=x.device)
+        x, new_caches = _ssm_stack(params, x, cfg, caches, cache_pos, q_lens)
+    elif cfg.family == "hybrid":
+        if caches is None:
+            caches = init_cache(cfg, x.shape[0], x.shape[1], device=x.device)
+        x, new_caches = _hybrid_stack(
+            params, x, x, cfg, positions, caches, cache_pos, q_lens, page_table
+        )
+    else:
+        x, new_caches = _dense_stack(
+            params, x, cfg, positions, caches, cache_pos, q_lens, page_table
+        )
     return _logits_out(params, x, cfg), new_caches
 
 
@@ -229,9 +319,9 @@ def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
     b, s = batch["tokens"].shape
     max_len = max_len or s
     caches = init_cache(cfg, b, max_len, device=params["embed"].device)
-    logits, caches = forward(
-        params, batch, cfg, caches=caches, cache_pos=torch.zeros((), dtype=torch.int32)
-    )
+    # SSM/hybrid: cache_pos=None is a fresh recurrent state
+    cache_pos = None if cfg.family in ("ssm", "hybrid") else torch.zeros((), dtype=torch.int32)
+    logits, caches = forward(params, batch, cfg, caches=caches, cache_pos=cache_pos)
     return logits[:, -1], caches
 
 

@@ -76,7 +76,10 @@
   prefill chunks skipped, a partially matched page is copied at admission,
   and the table rides into each fused step with one host-to-device copy,
 * **not yet ported** (ROADMAP A7): speculative draft/target serving
-  (``draft_cfg``) raises ``NotImplementedError``.
+  (``draft_cfg``) raises ``NotImplementedError``.  So does an SSM or
+  hybrid model (mamba2, zamba2): as in the reference, those families are
+  served at the model level only (``build_model(cfg).fused_step`` and the
+  other entry points), never through the engine's stage executor.
 
 The port runs on ``torch`` devices (default: every visible CUDA card) and
 keeps the reference's host-side logic — planning, admission, adaptation,
@@ -103,7 +106,12 @@ from repro_torch.core.milp import PlacementResult
 from repro_torch.core.placement import PlanConfig, plan, replan
 from .adaptation import AdaptationConfig, AdaptationEvent, DeratePolicy
 from .kv_pool import StrictKVPool
-from .stage_executor import StageExecutor, stages_from_placement, stats_from_times
+from .stage_executor import (
+    StageExecutor,
+    check_servable,
+    stages_from_placement,
+    stats_from_times,
+)
 
 
 @dataclass
@@ -253,6 +261,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "speculative serving (draft_cfg) is not ported yet (ROADMAP A7)"
             )
+        check_servable(cfg)
         if devices is None:
             devices = cuda_devices()
         self.devices = list(devices)

@@ -77,6 +77,20 @@ def stages_from_placement(
     return stages
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a model the executor cannot serve: an unported family, or
+    an SSM/hybrid one, which runs at the model level only (as in the
+    reference, whose executor applies attention blocks to every layer)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the stage executor and the serving engine serve "
+            f"attention-family blocks only; the {cfg.family} family runs at the model "
+            "level through repro_torch.models.model.build_model(cfg) and its entry "
+            "points prefill, prefill_chunked, decode_step and fused_step"
+        )
+    transformer.check_family(cfg)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -92,7 +106,7 @@ class StageExecutor:
         params: Dict[str, Any],
         stages: List[Stage],
     ):
-        transformer.check_family(cfg)
+        check_servable(cfg)
         self.cfg = cfg
         self.stages = stages
         self._windows = transformer._layer_windows(cfg)

@@ -42,6 +42,20 @@ def test_every_module_imports_with_jax_blocked():
         # ...and the MoE path
         "main(['--arch', 'qwen2-moe-a2.7b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2'])\n"
+        # ...and the SSM and hybrid families through the model facade, with
+        # a fused step and paged KV
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.model import build_model\n"
+        "for arch in ('mamba2-130m', 'zamba2-2.7b'):\n"
+        "    cfg = get_config(arch).smoke()\n"
+        "    m = build_model(cfg)\n"
+        "    p = m.init(torch.Generator().manual_seed(0), 'cpu')\n"
+        "    toks = torch.ones((2, 5), dtype=torch.int32)\n"
+        "    m.prefill(p, {'tokens': toks}, 16)\n"
+        "    c = m.init_paged_cache(4, 8, 2, 'cpu')\n"
+        "    m.fused_step(p, {'tokens': toks}, c, [0, 0], [5, 3],"
+        " page_table=torch.tensor([[0, 1], [2, 3]]))\n"
         "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " if sys.modules[m] is not None]\n"
         "print(len(names))\n"

@@ -2,13 +2,16 @@
 (interpret mode on the CPU), the CPU dispatch of the wrappers, and — on a
 CUDA card only (``-m gpu``) — each CUDA kernel against its plain version
 (the paged flash kernel's CPU parity is in ``test_torch_paged.py``, the
-grouped GEMM's in ``test_torch_moe.py``).
+grouped GEMM's in ``test_torch_moe.py``, the SSD scan's in
+``test_torch_ssm.py``).
 
 Tolerances: fp32 2e-4 and bf16 3e-2 against the Pallas kernels (as
 ``test_kernels.py``); 2e-5 against the ragged-row oracle (as
 ``test_fused_step.py``); on the card fp32 1e-4 max abs, bf16 atol 1e-2 +
 rtol 1e-2 (the two sides may round one fp32 value to neighbouring bf16
-values, one bf16 ulp: 2^-8 relative).
+values, one bf16 ulp: 2^-8 relative); the SSD scan on the card as the
+reference holds its Pallas kernel: max error over max |ref| under 1e-5 in
+fp32 and 4e-2 in bf16, for y and the final state.
 
 The JAX reference is imported inside the tests that compare against it, so
 the card tests run where only the port is installed:
@@ -22,6 +25,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def _jax():
@@ -239,11 +243,11 @@ def test_flash_kernel_fused_chunk_on_card(cuda_device, dtype, window, softcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_flash_kernel_head_dims_on_card(cuda_device, d):
-    """The kernel is built for head dims 64 and 128; the wrapper refuses
-    the others."""
-    if d not in (64, 128):
+    """The kernel is built for head dims 64, 80 and 128; the wrapper
+    refuses the others."""
+    if d not in (64, 80, 128):
         with pytest.raises(ValueError, match="head_dim"):
             _card_flash_case(cuda_device, torch.float32, sq=5, sk=200, b=2, depths=[0, 150],
                              q_lens=[5, 3], h=4, kv=2, d=d)
@@ -392,6 +396,157 @@ def test_flash_kernels_head_dim_128_without_gqa_on_card(cuda_device, dtype, page
     _assert_within(out, ref)
     for bi, n in enumerate(q_lens):
         assert not out[bi, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("sq", [1, 64], ids=["decode", "fused_chunk"])
+def test_flash_kernels_head_dim_80_on_card(cuda_device, dtype, paged, sq):
+    """zamba2-2.7b's shared attention: head dim 80, 32 query and 32 KV
+    heads, decode rows (the 8-lane decode tile) and fused chunks; every
+    output dim, 64-79 included, is held to the plain version."""
+    q_lens = [1] * 8 if sq == 1 else [64, 1, 0, 17, 64, 1, 17, 0]
+    rng = np.random.default_rng(80 + sq)
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in q_lens]
+    if not paged:
+        _card_flash_case(cuda_device, dtype, sq=sq, sk=2048, b=8, depths=depths,
+                         q_lens=q_lens, h=32, kv=32, d=80)
+        return
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, dtype, P=64, depths=depths, q_lens=q_lens, sq=sq, h=32, kv=32, d=80)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, scale=80 ** -0.5)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, scale=80 ** -0.5)
+    dense = fa.flash_attention(q, fa.paged_view(pk, table).contiguous(),
+                               fa.paged_view(pv, table).contiguous(), offs, lens,
+                               scale=80 ** -0.5)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+    assert torch.equal(out, dense)
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+# ----------------------------------------------------------- SSD scan (-m gpu)
+def _rel(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-9)).item()
+
+
+def _card_ssd_inputs(device, dtype, *, b, s, h, p, g, n, init, seed=0):
+    """The reference kernel test's distributions, drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen, device=device).to(dtype)
+    dt = torch.randn(b, s, h, generator=gen, device=device).abs() * 0.1 + 0.01
+    a = -(torch.randn(h, generator=gen, device=device).abs() + 0.5)
+    bm = torch.randn(b, s, g, n, generator=gen, device=device).to(dtype)
+    cm = torch.randn(b, s, g, n, generator=gen, device=device).to(dtype)
+    st = torch.randn(b, h, p, n, generator=gen, device=device) if init else None
+    return [x, dt, a, bm, cm], st
+
+
+def _card_ssd_case(device, dtype, *, chunk, init, **shape):
+    args, st = _card_ssd_inputs(device, dtype, init=init, **shape)
+    before = ssd.launches
+    y, fin = ssd.ssd_scan(*args, chunk, st)
+    assert ssd.launches == before + 1
+    yr, fr = ssd.ssd_scan_plain(*args, chunk, st)
+    torch.cuda.synchronize(device)
+    tol = 1e-5 if dtype == torch.float32 else 4e-2
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    assert _rel(y, yr) < tol and _rel(fin, fr) < tol, (_rel(y, yr), _rel(fin, fr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True], ids=["zero_state", "init_state"])
+@pytest.mark.parametrize(
+    "b,s,h,p,g,n,chunk",
+    [(2, 64, 4, 16, 1, 32, 16), (1, 128, 8, 64, 2, 64, 32), (2, 50, 4, 16, 4, 32, 16)],
+)
+def test_ssd_scan_kernel_reference_shapes_on_card(cuda_device, dtype, init, b, s, h, p, g, n,
+                                                  chunk):
+    """The reference kernel test's shapes (G = 2 and 4; S = 50 not a
+    multiple of the chunk), from a zero and from a random initial state."""
+    _card_ssd_case(cuda_device, dtype, chunk=chunk, init=init, b=b, s=s, h=h, p=p, g=g, n=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 17, 64, 200])
+@pytest.mark.parametrize("model", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssd_scan_kernel_model_shapes_on_card(cuda_device, model, s):
+    """mamba2-130m's heads (H 24, P 64, N 128) and zamba2-2.7b's (H 80,
+    P 64, N 64), chunk 128: one partial chunk up to several chunks."""
+    h, n = (24, 128) if model == "mamba2-130m" else (80, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        for init in (False, True):
+            _card_ssd_case(cuda_device, dtype, chunk=128, init=init, b=2, s=s, h=h, p=64, g=1,
+                           n=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_masked_rows_freeze_the_state_on_card(cuda_device, dtype):
+    """dt zeroed past a per-row length (the fused step's padding) leaves
+    the final state equal to the state at that length."""
+    args, st = _card_ssd_inputs(cuda_device, dtype, b=3, s=150, h=24, p=64, g=1, n=128,
+                                init=True)
+    lens = [150, 37, 0]
+    keep = torch.arange(150, device=cuda_device)[None, :, None] < torch.tensor(
+        lens, device=cuda_device)[:, None, None]
+    args[1] = args[1] * keep
+    _, fin = ssd.ssd_scan(*args, 128, st)
+    tol = 1e-5 if dtype == torch.float32 else 4e-2
+    for bi, n in enumerate(lens):
+        if n == 0:
+            ref = st[bi]
+        else:
+            row = [t[bi:bi + 1, :n].contiguous() for t in (args[0], args[1])]
+            _, ref = ssd.ssd_scan(row[0], row[1], args[2], args[3][bi:bi + 1, :n].contiguous(),
+                                  args[4][bi:bi + 1, :n].contiguous(), 128, st[bi:bi + 1])
+            ref = ref[0]
+        torch.cuda.synchronize(cuda_device)
+        assert _rel(fin[bi], ref) < tol, (bi, _rel(fin[bi], ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssd_scan_kernel_updates_the_state_in_place_on_card(cuda_device, model):
+    """``out_state`` = ``init_state``: the kernel writes the final state
+    over the initial one (the model's cache) and agrees with the plain
+    version on a separate copy."""
+    h, n = (24, 128) if model == "mamba2-130m" else (80, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        args, st = _card_ssd_inputs(cuda_device, dtype, b=8, s=64, h=h, p=64, g=1, n=n,
+                                    init=True)
+        yr, fr = ssd.ssd_scan_plain(*args, 128, st.clone())
+        y, fin = ssd.ssd_scan(*args, 128, st, out_state=st)
+        torch.cuda.synchronize(cuda_device)
+        assert fin.data_ptr() == st.data_ptr()
+        tol = 1e-5 if dtype == torch.float32 else 4e-2
+        assert _rel(y, yr) < tol and _rel(st, fr) < tol, (_rel(y, yr), _rel(st, fr))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device):
+    args, st = _card_ssd_inputs(cuda_device, torch.float32, b=1, s=8, h=4, p=16, g=1, n=32,
+                                init=True)
+    x, dt, a, bm, cm = args
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.half(), dt, a, bm, cm, 16)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt.double(), a, bm, cm, 16)
+    with pytest.raises(ValueError, match="N must be one of"):
+        ssd.ssd_scan(x, dt, a, bm[..., :24].contiguous(), cm[..., :24].contiguous(), 16)
+    with pytest.raises(ValueError, match="N must be one of"):
+        ssd.ssd_scan(x, dt, a, bm[..., :16].contiguous(), cm[..., :16].contiguous(), 16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_scan(x, dt, a, bm, cm, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bm, cm, 16)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt, a, bm, cm, 16, st.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="out_state"):
+        ssd.ssd_scan(x, dt, a, bm, cm, 16, st, out_state=st[:, :2].contiguous())
 
 
 # ------------------------------------------------------ grouped GEMM (-m gpu)
