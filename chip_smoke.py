@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens, with shared pages, unmapped entries and a trash page of large
    finite garbage that must change no output, and against the dense
    kernel on the gathered view of the same pools; both flash kernels at
-   qwen2-moe's head dim 128 (16 query and 16 KV heads); the grouped GEMM
+   qwen2-moe's head dim 128 (16 query and 16 KV heads); a chunk of 100
+   queries at depths 0 and 1000 at each head dim, dense and paged (bf16:
+   the tensor-core chunk tile's ragged edges); the grouped GEMM
    at qwen2-moe's gate/up and down shapes under decode and chunk routing,
    and on edge groupings;
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
@@ -74,7 +76,9 @@ Phases (any failure exits non-zero; nothing is caught):
    also beside the dense kernel at the same depths and the two-call
    yardstick gather + SDPA (no single PyTorch call reads through a page
    table); the flash kernels at qwen2-moe's head dim 128 and zamba2's 80
-   too; the grouped GEMM at qwen2-moe's decode and chunk routings, beside
+   too, and the bf16 chunk tile's fixed cost (8 rows at depth 0) and cost
+   a key tile (one row at depth 1984: 32 key tiles in order); the grouped
+   GEMM at qwen2-moe's decode and chunk routings, beside
    ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
    ``torch.matmul`` loop, labelled so); the SSD kernel at both models'
    fused-chunk shapes (no single PyTorch call computes the scan).
@@ -231,7 +235,22 @@ def flash_cases(dev, dtype, arch=LLAMA):
             flash_inputs(dev, dtype, sq=64, depths=chunk_depths, q_lens=chunk_lens, **hk),
             {"window": 64, "softcap": 50.0},
         ),
+        # the chunk tile's fixed cost (one key tile a block) and its cost a
+        # key tile (one row: 32 key tiles walked in order by each block)
+        "chunk_depth0": (flash_inputs(dev, dtype, sq=64, depths=[0] * 8, q_lens=[64] * 8, **hk),
+                         {}),
+        "chunk_one_row_depth1984": (
+            flash_inputs(dev, dtype, sq=64, depths=[1984], q_lens=[64], **hk), {}),
     }
+
+
+def ragged_chunk_cases(dev, dtype, arch):
+    """A chunk whose Sq (100) is not a multiple of the tensor-core tile's
+    16-row warp slice, at depths 0 and 1000 (last keys 100 and 1100: not
+    multiples of the 64-key tile), dense and paged (P = 64)."""
+    hk = HEADS[arch]
+    kw = dict(sq=100, depths=[0, 1000], q_lens=[100, 100], **hk)
+    return flash_inputs(dev, dtype, **kw), paged_inputs(dev, dtype, P=64, **kw)
 
 
 def run_flash(fn, inp, extra):
@@ -471,6 +490,19 @@ def phase_check(dev) -> dict:
             errs[("flash_attention_paged", "d80_" + case, dtype)] = err
             log(f"[check] flash_attention_paged d80 {case} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}; equal to the dense kernel on the gathered view")
+        for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128")):
+            dense_inp, paged_inp = ragged_chunk_cases(dev, dtype, arch)
+            out = run_flash(fa.flash_attention, dense_inp, {})
+            err = within(out, run_flash(fa.flash_attention_plain, dense_inp, {}))
+            paged = run_paged(fa.flash_attention_paged, paged_inp, {})
+            p_err = within(paged, run_paged(fa.flash_attention_paged_plain, paged_inp, {}))
+            if not torch.equal(paged, run_flash(fa.flash_attention, gathered(paged_inp), {})):
+                raise AssertionError(f"flash_paged {tag} sq100: differs from the dense kernel "
+                                     "on the gathered view")
+            errs[("flash_attention", f"{tag}_sq100", dtype)] = err
+            errs[("flash_attention_paged", f"{tag}_sq100_P64", dtype)] = p_err
+            log(f"[check] flash_attention {tag} sq100 depths 0/1000 {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}; paged P64 {p_err:.3e}, equal to the dense kernel on the gathered view")
         for case, inp in gg_cases(dev, dtype).items():
             out = run_gg(gg.grouped_gemm, inp)
             err = within(out, run_gg(gg.grouped_gemm_plain, inp))
@@ -659,7 +691,12 @@ def report_trace(prof, wall, tag, what) -> None:
         f"{tag} the profiler recorded no device time: not measured")
     for dt, key, n in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
-    # copies (cache writes among them), wherever they rank
+    # the flash tiles and the copies (cache writes among them), wherever
+    # they rank
+    flash = sorted(r for r in rows if "flash_fwd" in r[1])[::-1]
+    if flash:
+        log(f"{tag}   flash: " + "; ".join(f"{key.split('::', 1)[-1][:62]} {dt / 1e3:.3f} ms x{n}"
+                                           for dt, key, n in flash))
     copies = sorted(r for r in rows if "Memcpy" in r[1] or "direct_copy" in r[1])[::-1]
     if copies:
         log(f"{tag}   copies: " + "; ".join(f"{key[:40]} {dt / 1e3:.3f} ms x{n}"
@@ -1393,7 +1430,8 @@ def gg_library(inp):
 
 def time_flash(dev, flush, rows, arch, prefix, dtype) -> None:
     """The dense flash kernel at ``arch``'s heads, decode and chunk (and
-    window + softcap for llama), L2 flushed before each call."""
+    window + softcap for llama), and the chunk tile's two probes (8 rows at
+    depth 0; one row at depth 1984), L2 flushed before each call."""
     for case, (inp, extra) in flash_cases(dev, dtype, arch).items():
         if arch != LLAMA and extra:
             continue

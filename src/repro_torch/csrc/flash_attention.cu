@@ -12,44 +12,79 @@
 // A query row with no visible key, and every row i >= q_lens[b], is written
 // as exact zeros (the fused mixed-batch padding contract).  Inputs are
 // q [B, Sq, H, D], k/v [B, Sk, KV, D] (contiguous), float32 or bfloat16;
-// all arithmetic is fp32, with the online-softmax recurrence
+// scores, softmax and sums are fp32, with the online-softmax recurrence
 //   m' = max(m, rowmax(s));  l' = l e^{m-m'} + rowsum(e^{s-m'});
 //   acc' = acc e^{m-m'} + e^{s-m'} v.
 //
-// Bound: bytes, at the main path's shapes.  A decode row (Sq = 1) reads
-// its cache up to its depth once and does ~4 flops per key element for each
-// of the `rep` query heads of its KV head.  A 64-token prefill chunk does
-// 64·rep query rows per key, at most 256 flops per byte of K/V (112 at the
-// mixed-row shape chip_smoke.py times): still under the card's ~295
-// flop/byte bf16 ridge.  This version computes on the fp32 CUDA cores,
-// not the tensor cores, so at chunk shapes its arithmetic, not the bytes,
-// is what holds it back.
+// Two tiles compute that function.  Both are one block per (query-row tile,
+// KV head, batch row), whose rows are (query position, head-in-group)
+// pairs, so the `rep` query heads sharing one KV head read each K/V tile
+// once — the TPU wrapper's per-group K/V broadcast and its 128-lane
+// head-dim pad are layout choices of the TPU and are not copied; K/V are
+// read straight from [B, Sk, KV, D] by stride.  Both walk 64-key tiles
+// through two shared-memory stages: `cp.async` copies the next tile in
+// 16-byte pieces, bypassing the registers, while the current one is
+// computed, so the copy latency is paid once and not per element.  K/V
+// stay in the input type in shared memory, rows padded by 16 bytes against
+// bank conflicts.  The key loop starts at the tile's first in-window key
+// and stops at its last visible key, q_offset + min(q_len, last row) - 1,
+// so idle rows cost nothing and no unwritten cache slot is read.
 //
-// Design.  One block per (query-row tile, KV head, batch row).  The tile's
-// rows are (query position, head-in-group) pairs, so the `rep` query heads
-// sharing one KV head read each K/V tile once — the TPU wrapper's per-group
-// K/V broadcast and its 128-lane head-dim pad are layout choices of the TPU
-// and are not copied; K/V are read straight from [B, Sk, KV, D] by stride.
-// The block walks 64-key tiles through two shared-memory stages:
-// `cp.async` copies the next tile in 16-byte pieces, bypassing the
-// registers, while the current one is computed, so the copy latency is paid
-// once and not per element.  K/V stay
-// in the input type in shared memory (rows padded by 16 bytes against bank
-// conflicts) and are read as pairs of elements.  In a prefill tile (64
-// rows) four lanes own one query row: each scores 16 keys of the tile and
-// accumulates D/4 output dims (16 at D = 64, 32 at D = 128); a decode tile
-// has 4 rows of 16 lanes, 4 keys and D/16 dims a lane, so no lane idles on
-// the few rows of a decode step with rep >= 4 (llama3.2-1b's GQA); at
-// D = 80 it has 4 rows of 8 lanes, 8 keys and 10 dims a lane, since 16
-// lanes would leave each an odd 5 dims and the pairwise P·V loop needs
-// whole pairs (a static_assert holds every instance to that).  Without
-// GQA (rep = 1, qwen2-moe) a decode step has one row per (b, KV head), and
-// three of the tile's four rows idle: a known waste, not yet addressed.  Row max and sum are reduced across a row's lanes with shuffles,
-// and the probabilities are exchanged by shuffle for the P·V product.  The
-// key loop starts at the tile's first in-window key and stops at its last
-// visible key, q_offset + min(q_len, last row) - 1, so idle rows cost
-// nothing and no unwritten cache slot is read.  No mma, wgmma, TMA or warp
-// specialisation yet: the products run on the fp32 CUDA cores.
+// The bf16 chunk tile (`flash_fwd_mma_kernel`, Sq·rep > 16) runs both
+// products on the tensor cores, in the FlashAttention-2 shape.
+//   Bound: a 64-token chunk does 64·rep query rows per key, at most 256
+//   flops per byte of K/V (112 at the mixed-row shape chip_smoke.py times):
+//   under the card's ~295 flop/byte bf16 ridge, so bytes bound it over the
+//   whole grid.  But the grid is small (8 rows × KV heads: 128–256 blocks)
+//   and the deepest row's block walks its ~32 key tiles in order on one SM,
+//   so that block's arithmetic sets the pace; on the fp32 CUDA cores (the
+//   old tile) it ran at a fifth of one SM's fp32 rate.
+//   Design: 64 rows, 4 warps of 16 rows (128 threads).  Q is copied to
+//   shared memory once as bf16 (`cp.async`, with key tile 0) and each warp
+//   keeps its D/16 A-fragments in registers (`ldmatrix.x4`).  S = Q·Kᵀ is
+//   `mma.sync.m16n8k16` bf16 with fp32 accumulators, K's B-fragments
+//   straight from the padded rows by `ldmatrix` (row strides of 144, 176
+//   and 272 bytes put the 8 rows of each read on 8 distinct groups of four
+//   banks: no swizzle).  Scale, softcap and the softmax run in fp32 on the
+//   accumulators, in log2 units so each exponential is one `ex2.approx`;
+//   each row's max and sum are reduced over the quad of lanes that owns it.
+//   The masks are applied only on a warp's boundary tiles, as one key range
+//   [lo, hi) a row.  P is packed to bf16 pairs in registers — an m16n8
+//   accumulator pair is already the A-fragment of the next m16n8k16 — and
+//   P·V takes V's B-fragments by `ldmatrix.trans`; O stays fp32 in
+//   registers (D/8 n-tiles).  One barrier a key tile: after it, the stage
+//   of the previous tile is refilled while this one is computed.  A warp
+//   whose 16 rows are all invalid, or that sees none of a key tile, skips
+//   that tile's products and softmax (an all-masked tile leaves m, l and O
+//   exactly as they were) but still issues its copies and reaches every
+//   barrier.  A deep row's block is alone on its SM, one warp to each
+//   scheduler, so the tile is paced by the latency of that warp's chain of
+//   products and softmax, not by the copies (a deeper ring does not help).
+//   No wgmma, TMA, warp specialisation or split-KV yet.
+//   Rounding: P is rounded to bf16 for P·V only (`l` sums the fp32
+//   probabilities), where the old tile and the reference keep P in fp32;
+//   tests/test_torch_kernels.py bounds the difference with a plain model of
+//   this arithmetic, well inside the bf16 tolerance.
+//
+// The old tile (`flash_fwd_kernel`) keeps fp32 chunks (whose token-identity
+// checks need fp32 products; TF32 or bf16 would break them) and every
+// decode shape (Sq·rep <= 16), all on the fp32 CUDA cores.
+//   Bound: bytes.  A decode row (Sq = 1) reads its cache up to its depth
+//   once and does ~4 flops per key element for each of the `rep` query
+//   heads of its KV head.
+//   Design: Q is held in fp32 in shared memory and K/V are read as pairs of
+//   elements.  In a chunk tile (64 rows) four lanes own one query row: each
+//   scores 16 keys of the tile and accumulates D/4 output dims; a decode
+//   tile has 4 rows of 16 lanes, 4 keys and D/16 dims a lane, so no lane
+//   idles on the few rows of a decode step with rep >= 4 (llama3.2-1b's
+//   GQA); at D = 80 it has 4 rows of 8 lanes, 8 keys and 10 dims a lane,
+//   since 16 lanes would leave each an odd 5 dims and the pairwise P·V loop
+//   needs whole pairs (a static_assert holds every instance to that).
+//   Without GQA (rep = 1, qwen2-moe) a decode step has one row per (b, KV
+//   head), and three of the tile's four rows idle: a known waste, not yet
+//   addressed.  Row max and sum are reduced across a row's lanes with
+//   shuffles, and the probabilities are exchanged by shuffle for the P·V
+//   product.
 //
 // Paged K/V.  One kernel body, two ways to address a key row: the address
 // of key kp of batch row b, KV head g, is a template policy.  `DenseKV`
@@ -73,6 +108,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -99,6 +136,48 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// four 8x8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8i..8i+7 give matrix i's rows); lane t receives row t/4, columns
+// 2(t%4) and 2(t%4)+1 of each, or with .trans the same of the transpose
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// d += a b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
+// d 16x8 fp32.  Lane t = 4 gr + tq holds d rows gr and gr + 8, columns
+// 2 tq and 2 tq + 1: {d0, d1} and {d2, d3}
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit: one instruction, results below 2^-126
+// flushed to 0 (so 2^(NEG - m) is exactly 0 for any finite m)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to one bf16 pair, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 constexpr int BK = 64;          // keys per tile
 
 // where key row kp of batch row b, KV head g starts, in elements of D:
@@ -121,6 +200,54 @@ struct PagedKV {
     return (static_cast<long long>(page) * P + kp % P) * KV + g;
   }
 };
+
+// The tensor-core tile's key range and tile copy.  `flash_fwd_kernel` keeps
+// its own inline copies of both: routed through these helpers, its D 80
+// decode instance compiled to more registers and ran slower on the card.
+
+// the keys [start, end) that the tile rows row_lo..row_hi of one batch row
+// may see: from the first row's first in-window key to the last valid
+// row's last visible key; end = 0 when no row of the range is valid
+struct KeyRange {
+  int start, end;
+};
+__device__ __forceinline__ KeyRange key_range(int row_lo, int row_hi, int rep, int Sq, int q_off,
+                                              int q_len, int causal, int window, int k_len) {
+  const int qi_lo = row_lo / rep;
+  int qi_max = min(Sq - 1, row_hi / rep);
+  qi_max = min(qi_max, q_len - 1);
+  KeyRange r{0, k_len};
+  if (qi_max < qi_lo) {
+    r.end = 0;
+  } else {
+    if (causal) r.end = min(k_len, q_off + qi_max + 1);
+    if (window > 0) r.start = max(0, q_off + qi_lo - window + 1);
+  }
+  return r;
+}
+
+// issue the asynchronous copies of the BK-key tile that starts at key kt
+// into one stage (K rows at Kst, V rows at Vst, LDK elements apart), by NT
+// threads; keys at or past k_end are filled with zeros
+template <typename T, int D, int NT, typename Addr>
+__device__ __forceinline__ void load_kv_tile(T* Kst, T* Vst, const T* k, const T* v,
+                                             const Addr& addr, long long b, int g, int KV, int kt,
+                                             int k_end, int tid) {
+  constexpr int LDK = D + 16 / sizeof(T);   // K/V row in elements, padded 16 bytes
+  constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte copy
+  constexpr int CPR = D / EPC;              // copies per key row
+  for (int e = tid; e < BK * CPR; e += NT) {
+    const int j = e / CPR;
+    const int c = e % CPR;
+    const int kp = kt + j;
+    const bool in = kp < k_end;
+    // `in` first: no address (and no table entry) past the last visible key
+    const long long off = in ? addr.row(b, kp, KV, g) * D + c * EPC : 0;
+    cp_async16(Kst + j * LDK + c * EPC, k + off, in ? 16 : 0);
+    cp_async16(Vst + j * LDK + c * EPC, v + off, in ? 16 : 0);
+  }
+  cp_async_commit();
+}
 
 // shared memory: Q tile in fp32 [BR][D+1], then two stages of K and V tiles
 // in the input type, rows padded by 16 bytes against bank conflicts
@@ -318,6 +445,275 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ------------------------------------------------------- bf16 chunk tile
+constexpr int MMA_BR = 64;      // tile rows per block: 4 warps of 16
+constexpr int MMA_NT = 128;
+
+// shared memory: the Q tile, then two stages of K and V tiles, all bf16
+// rows of D + 8 elements (16 bytes of pad)
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return static_cast<size_t>(MMA_BR + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int D, typename Addr>
+__global__ void __launch_bounds__(MMA_NT)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     const int* __restrict__ q_offsets, const int* __restrict__ q_lens, int Sq,
+                     int H, Addr addr, int KV, float scale, int causal, int window,
+                     float softcap, int k_len) {
+  using T = __nv_bfloat16;
+  static_assert(D % 16 == 0, "head dim must be a multiple of the mma depth, 16");
+  constexpr int LD = D + 8;          // shared row in elements
+  constexpr int KSTEPS = D / 16;     // k-steps of Q·Kᵀ
+  constexpr int NS = BK / 8;         // n-tiles of S (8 keys each)
+  constexpr int NO = D / 8;          // n-tiles of O (8 dims each)
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* KVs = Qs + MMA_BR * LD;
+  // stage s: K at KVs + (2s) * BK*LD, V at KVs + (2s+1) * BK*LD
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;         // fragment row (and +8)
+  const int tq = lane & 3;          // fragment column pair
+  const int g = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int rep = H / KV;
+  const int rows_total = Sq * rep;
+  const int tile_lo = blockIdx.x * MMA_BR;
+  const int w_lo = tile_lo + 16 * warp;
+
+  const int q_off = q_offsets[b];
+  const int q_len = q_lens[b];
+
+  // the block's key range (every warp copies and waits on every tile) and
+  // the warp's own (it computes only the tiles it can see)
+  const KeyRange kr =
+      key_range(tile_lo, tile_lo + MMA_BR - 1, rep, Sq, q_off, q_len, causal, window, k_len);
+  const KeyRange wr = key_range(w_lo, w_lo + 15, rep, Sq, q_off, q_len, causal, window, k_len);
+  const int k_start = kr.start;
+  const int k_end = kr.end;
+  const int n_tiles = k_end > k_start ? (k_end - k_start + BK - 1) / BK : 0;
+
+  // issue the asynchronous copies of key tile `it` into stage it & 1
+  auto load_tile = [&](int it) {
+    T* Kst = KVs + (2 * (it & 1)) * BK * LD;
+    load_kv_tile<T, D, MMA_NT>(Kst, Kst + BK * LD, k, v, addr, b, g, KV, k_start + it * BK,
+                               k_end, tid);
+  };
+
+  // Q's rows in 16-byte pieces (zeros past the last row), in one copy
+  // group with key tile 0
+  if (n_tiles > 0) {
+    for (int e = tid; e < MMA_BR * (D / 8); e += MMA_NT) {
+      const int rr = e / (D / 8);
+      const int c = e % (D / 8);
+      const int qrow = tile_lo + rr;
+      const bool in = qrow < rows_total;
+      const long long off =
+          in ? ((b * Sq + qrow / rep) * H + g * rep + qrow % rep) * D + c * 8 : 0;
+      cp_async16(Qs + rr * LD + c * 8, q + off, in ? 16 : 0);
+    }
+    load_tile(0);
+  }
+
+  // the two rows this lane owns in every fragment, w_lo + gr and + 8: the
+  // keys [lo, hi) each sees (empty for an invalid row)
+  int lo[2], hi[2];
+  bool row_in[2], row_valid[2];
+  long long o_off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w_lo + gr + 8 * i;
+    row_in[i] = row < rows_total;
+    const int qi = row_in[i] ? row / rep : 0;
+    const int h = g * rep + (row_in[i] ? row % rep : 0);
+    row_valid[i] = row_in[i] && qi < q_len;
+    const int qp = q_off + qi;
+    lo[i] = window > 0 ? qp - window + 1 : 0;
+    hi[i] = row_valid[i] ? (causal ? min(k_end, qp + 1) : k_end) : 0;
+    o_off[i] = ((b * Sq + qi) * H + h) * D;
+  }
+  // a key tile inside [int_lo, int_hi) is seen whole by every row of a
+  // warp whose 16 rows are all valid: no mask there
+  const int qw_lo = w_lo / rep;
+  const int qw_hi = (w_lo + 15) / rep;
+  const bool warp_full = w_lo + 15 < rows_total && qw_hi < q_len;
+  const int int_lo = window > 0 ? q_off + qw_hi - window + 1 : 0;
+  const int int_hi = causal ? min(k_end, q_off + qw_lo + 1) : k_end;
+  // scores are kept in log2 units, s = x log2 e, so 2^(s - m) = e^(x - m / log2 e)
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
+  const float cap_log2 = softcap * LOG2E;
+  const float scale_over_cap = softcap > 0.f ? scale / softcap : 0.f;
+
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};   // this lane's share of the row sums
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  unsigned qa[KSTEPS][4];   // the warp's Q A-fragments, one per k-step
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    // tile `it` (and Q) visible to all, and every warp done with tile
+    // it - 1, whose stage the next copy refills while this one is computed
+    __syncthreads();
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    if (it == 0) {
+      // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+      // (rows 8-15, k 8-15) of the warp's 16 rows
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldmatrix_x4(qa[kk], Qs + (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+    const int kt = k_start + it * BK;
+    const T* Kt = KVs + (2 * (it & 1)) * BK * LD;
+    const T* Vt = Kt + BK * LD;
+
+    // warp-uniform: skipping an all-masked tile changes nothing, since it
+    // would leave m, l and o exactly as they are
+    if (kt < wr.end && kt + BK > wr.start) {
+      // S = Q Kᵀ: n-tiles 2np and 2np+1 from one ldmatrix.x4 of K rows
+      // (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (8-15, 8-15)
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          unsigned kb[4];
+          ldmatrix_x4(kb, Kt + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(s[2 * np], qa[kk], kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+        }
+      }
+
+      // scale and softcap in fp32, in log2 units (one uniform branch); the
+      // masks only on a boundary tile.  Element e of n-tile j is row
+      // gr + 8 (e >> 1), key kt + 8 j + 2 tq + (e & 1)
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = cap_log2 * tanhf(s[j][e] * scale_over_cap);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+      }
+      if (!(warp_full && kt >= int_lo && kt + BK <= int_hi)) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = kt + 8 * j + 2 * tq + (e & 1);
+            if (kp < lo[e >> 1] || kp >= hi[e >> 1]) s[j][e] = NEG;
+          }
+      }
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float alpha[2], m_sub[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // the quad of lanes 4 gr .. 4 gr + 3 holds the row's 64 keys
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = fast_exp2(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+        // a masked key (NEG) contributes exactly 0: against a finite running
+        // max, and against none yet, where 0 is subtracted instead
+        m_sub[i] = m_new == NEG ? 0.f : m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = fast_exp2(s[j][e] - m_sub[e >> 1]);
+          l[e >> 1] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      // O += P V: P's n-tiles 2kk and 2kk+1, rounded to bf16, are the
+      // A-fragment of k-step kk; V's B-fragments by ldmatrix.trans of V rows
+      // (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (8-15, 8-15)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const unsigned pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(vb, Vt + (16 * kk + (lane & 15)) * LD + 16 * dp + (lane >> 4) * 8);
+          mma_bf16_16816(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16_16816(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!row_in[i]) continue;
+    const float inv = row_valid[i] ? 1.f / fmaxf(l[i], 1e-30f) : 0.f;
+    T* orow = out + o_off[i];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const float x0 = row_valid[i] ? o[j][2 * i] * inv : 0.f;
+      const float x1 = row_valid[i] ? o[j][2 * i + 1] * inv : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) = __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+template <int D, typename Addr>
+int launch_mma(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
+               const int* q_lens, int B, int Sq, int H, Addr addr, int KV, float scale,
+               int causal, int window, float softcap, int k_len, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kern = flash_fwd_mma_kernel<D, Addr>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int rows_total = Sq * (H / KV);
+  dim3 grid((rows_total + MMA_BR - 1) / MMA_BR, KV, B);
+  using T = __nv_bfloat16;
+  kern<<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), q_offsets, q_lens, Sq, H, addr, KV, scale, causal, window, softcap,
+      k_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, int BR, int TPR, typename Addr>
 int launch(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
            const int* q_lens, int B, int Sq, int H, Addr addr, int KV, float scale,
@@ -344,16 +740,20 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out,
                   int KV, float scale, int causal, int window, float softcap, int k_len,
                   cudaStream_t stream) {
   // decode batches carry only rep rows per (b, KV head): 4-row tiles with
-  // 16 lanes a row keep every lane busy; prefill chunks take 64-row tiles
-  // with 4 lanes a row.  A head dim that is not a multiple of 32 (80:
-  // zamba2-2.7b) takes 8 lanes a decode row, so each lane owns whole dim
-  // pairs (D % (2 * lanes) == 0)
+  // 16 lanes a row keep every lane busy.  A head dim that is not a multiple
+  // of 32 (80: zamba2-2.7b) takes 8 lanes a decode row, so each lane owns
+  // whole dim pairs (D % (2 * lanes) == 0).  bf16 chunks take the tensor-
+  // core tile; fp32 chunks the 64-row tile with 4 lanes a row
   constexpr int DEC_TPR = D % 32 == 0 ? 16 : 8;
   if (Sq * (H / KV) <= 16)
     return launch<T, D, 4, DEC_TPR>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
                                     causal, window, softcap, k_len, stream);
-  return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
-                             causal, window, softcap, k_len, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_mma<D>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale, causal,
+                         window, softcap, k_len, stream);
+  else
+    return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
+                               causal, window, softcap, k_len, stream);
 }
 
 // the instances built: head dim 64 (llama3.2-1b), 80 (zamba2-2.7b's shared

@@ -12,7 +12,10 @@ Layout is the model's: q
 ``kp > qp - window``.  Query rows with no visible key — idle rows
 (``q_len=0``) and the padding rows ``i >= q_lens[b]`` of a fused mixed
 batch — come out as exact zeros.  Scores are fp32 (optionally tanh
-soft-capped); the output has q's type.
+soft-capped); the output has q's type.  On the card a bf16 chunk
+(``Sq · H / KV > 16``) runs the tensor-core tile, which rounds the
+probabilities to bf16 for P·V; fp32 inputs and decode shapes keep them in
+fp32, as the plain version does.
 
 The paged kernel reads K/V from page pools ``[num_pages + 1, P, KV, D]``
 through a page table ``[B, pages_per_slot]``: logical key ``t`` of row b
@@ -124,8 +127,8 @@ def flash_attention_plain(
 def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
     """Raise on anything the CUDA kernel does not take: q ``[B, Sq, H, D]``
     on a card; k/v ``[N, S, KV, D]`` (dense rows or page pools) of q's type
-    and device, contiguous and 16-byte aligned; int32 ``[B]`` offsets and
-    lengths."""
+    and device; q, k and v contiguous and 16-byte aligned; int32 ``[B]``
+    offsets and lengths."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     b, _, h, d = q.shape
@@ -148,8 +151,8 @@ def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
     for t in (q, k, v, q_offsets, q_lens):
         if not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous inputs")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"{what} copies K/V in 16-byte pieces: align k and v to 16 bytes")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{what} copies Q and K/V in 16-byte pieces: align q, k and v to 16 bytes")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: q, k and v must share one device")
 

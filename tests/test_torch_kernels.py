@@ -9,7 +9,9 @@ Tolerances: fp32 2e-4 and bf16 3e-2 against the Pallas kernels (as
 ``test_kernels.py``); 2e-5 against the ragged-row oracle (as
 ``test_fused_step.py``); on the card fp32 1e-4 max abs, bf16 atol 1e-2 +
 rtol 1e-2 (the two sides may round one fp32 value to neighbouring bf16
-values, one bf16 ulp: 2^-8 relative); the SSD scan on the card as the
+values, one bf16 ulp: 2^-8 relative), which also holds a plain model of
+the bf16 chunk tile's arithmetic (P rounded to bf16 for P·V) against the
+plain version on the CPU; the SSD scan on the card as the
 reference holds its Pallas kernel: max error over max |ref| under 1e-5 in
 fp32 and 4e-2 in bf16, for y and the final state.
 
@@ -279,6 +281,11 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda_device):
     offs = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv, kv, offs, scale=1.0)
+    # q copied in 16-byte pieces: a contiguous view 4 bytes off is refused
+    q = torch.randn(1 * 2 * 4 * 64 + 1, device=cuda_device)[1:].view(1, 2, 4, 64)
+    kv = torch.randn(1, 8, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="align"):
+        fa.flash_attention(q, kv, kv, offs, scale=1.0)
 
 
 def _card_paged_case(device, dtype, *, P, depths, q_lens, sq, max_len=2048, h=32, kv=8,
@@ -426,6 +433,100 @@ def test_flash_kernels_head_dim_80_on_card(cuda_device, dtype, paged, sq):
     for bi, n in enumerate(q_lens):
         assert not out[bi, n:].any()
 
+
+
+# ------------------------------------------ the bf16 chunk tile (mma.sync)
+# attention heads (query, KV) and head dim of each served model
+_MODEL_HEADS = {"llama3.2-1b": (32, 8, 64), "zamba2-2.7b": (32, 32, 80),
+                "qwen2-moe-a2.7b": (16, 16, 128)}
+_WINDOW_SOFTCAP = [(None, None), (64, 50.0)]
+
+
+def _chunk_tile_model(q, k, v, q_offsets, q_lens, *, scale, window=None, softcap=None, bk=64):
+    """The arithmetic of the bf16 chunk tile in plain PyTorch: bf16 q/k/v,
+    fp32 scores, an online softmax over ``bk``-key tiles with a running max,
+    P rounded to bf16 for P·V only, fp32 l and O, output in bf16."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kv, h // kv, d)
+    kf, vf = k.float(), v.float()
+    vis_all = fa.visible_mask(q_offsets, q_lens, sq, sk, causal=True, window=window)
+    m = torch.full((b, kv, h // kv, sq), -1e30)
+    l = torch.zeros(b, kv, h // kv, sq)
+    o = torch.zeros(b, kv, h // kv, sq, d)
+    for kt in range(0, sk, bk):
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf[:, kt:kt + bk]) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        vis = vis_all[:, None, None, :, kt:kt + bk]
+        s = torch.where(vis, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vf[:, kt:kt + bk])
+        o = o * alpha[..., None] + pv
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window,softcap", _WINDOW_SOFTCAP, ids=["plain", "window_softcap"])
+@pytest.mark.parametrize("model", list(_MODEL_HEADS))
+def test_chunk_tile_rounding_of_p_within_bf16_tolerance(model, window, softcap):
+    """Rounding P to bf16 for P·V (the tensor-core chunk tile) stays within
+    the card's bf16 tolerance of the plain version, which keeps P in fp32:
+    at chip_smoke.py's timed chunk shape (8 rows x 64 queries, q_lens
+    64/1/0/64/17/1/64/0 at random depths, 2048 keys) of each model's heads."""
+    h, kv, d = _MODEL_HEADS[model]
+    rng = np.random.default_rng(0)
+    rng.integers(0, 2048, size=8)                 # the decode depths chip_smoke.py draws first
+    q_lens = [64, 1, 0, 64, 17, 1, 64, 0]
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in q_lens]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+               for shape in ((8, 64, h, d), (8, 2048, kv, d), (8, 2048, kv, d)))
+    offs = torch.tensor(depths, dtype=torch.int32)
+    lens = torch.tensor(q_lens, dtype=torch.int32)
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap)
+    out = _chunk_tile_model(q, k, v, offs, lens, **kw)
+    ref = fa.flash_attention_plain(q, k, v, offs, lens, causal=True, **kw)
+    _assert_within(out, ref)
+    assert not torch.equal(out, ref)              # the rounding is really modelled
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", _WINDOW_SOFTCAP, ids=["plain", "window_softcap"])
+@pytest.mark.parametrize("sq", [17, 64, 100, 300])
+@pytest.mark.parametrize("kv_layout", ["dense", "P16", "P48", "P64"])
+@pytest.mark.parametrize("model", list(_MODEL_HEADS))
+def test_flash_chunk_tile_on_card(cuda_device, model, kv_layout, sq, window, softcap):
+    """The tensor-core chunk tile (bf16, Sq·rep > 16) against the plain
+    version at each model's heads: a row at depth 0, a row whose last key
+    (1001 + Sq) is not a multiple of the 64-key tile, rows of q_len 1 and 5
+    (whole warps of their row tile idle) and an idle row; paged also
+    bit-equal to the dense kernel on the gathered view, with a garbage
+    trash page."""
+    h, kv, d = _MODEL_HEADS[model]
+    depths, q_lens = [0, 1001, 517, 300, 1703], [sq, sq, 1, 5, 0]
+    kw = dict(scale=d ** -0.5, causal=True, window=window, softcap=softcap)
+    if kv_layout == "dense":
+        _card_flash_case(cuda_device, torch.bfloat16, sq=sq, sk=2048, b=5, depths=depths,
+                         q_lens=q_lens, window=window, softcap=softcap, h=h, kv=kv, d=d)
+        return
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, torch.bfloat16, P=int(kv_layout[1:]), depths=depths, q_lens=q_lens, sq=sq,
+        h=h, kv=kv, d=d)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, **kw)
+    dense = fa.flash_attention(q, fa.paged_view(pk, table).contiguous(),
+                               fa.paged_view(pv, table).contiguous(), offs, lens, **kw)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+    assert torch.equal(out, dense)
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
 
 # ----------------------------------------------------------- SSD scan (-m gpu)
 def _rel(out, ref) -> float:
