@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel on the gathered view of the same pools; both flash kernels at
    qwen2-moe's head dim 128 (16 query and 16 KV heads); a chunk of 100
    queries at depths 0 and 1000 at each head dim, dense and paged (bf16:
-   the tensor-core chunk tile's ragged edges); the grouped GEMM
+   the tensor-core chunk tile's ragged edges); the split-KV decode kernel
+   at each model's heads, at depths 0, split-1, split, split+1 and 2047
+   and an idle row, plain and with window 64 + softcap 50, dense and paged
+   (P 16, 48, 64): paged bit-equal to dense on the gathered view (trash
+   page garbage or zeroed) and two launches bit-identical; the grouped GEMM
    at qwen2-moe's gate/up and down shapes under decode and chunk routing,
    and on edge groupings;
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
@@ -24,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``ServingEngine`` with 16 requests of 100–600 prompt tokens, 8 slots,
    max_len 2048 and 32 new tokens each, served three times by one engine
    (tok/s of each run, their spread and the host's CPU) — both kernels
-   must have launched in every run;
+   must have launched in every run, and decode steps must have run the
+   split-KV decode kernel;
 5. parity on the card: 2 full-width layers in fp32 served with the kernels
    and with the plain versions give identical greedy tokens; the bf16
    full-depth logits of one prefill are compared too;
@@ -77,7 +82,11 @@ Phases (any failure exits non-zero; nothing is caught):
    yardstick gather + SDPA (no single PyTorch call reads through a page
    table); the flash kernels at qwen2-moe's head dim 128 and zamba2's 80
    too, and the bf16 chunk tile's fixed cost (8 rows at depth 0) and cost
-   a key tile (one row at depth 1984: 32 key tiles in order); the grouped
+   a key tile (one row at depth 1984: 32 key tiles in order), and the
+   decode kernel's fixed cost (8 rows at depth 0, merge included) and
+   deepest split walk (one row at depth 2047).  SDPA, the yardstick, is
+   timed under each backend that takes the call, and the fastest is
+   reported with its name; the grouped
    GEMM at qwen2-moe's decode and chunk routings, beside
    ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
    ``torch.matmul`` loop, labelled so); the SSD kernel at both models'
@@ -146,6 +155,8 @@ def nvidia_smi_line() -> str:
 def reset_counts() -> None:
     fa.launches = 0
     fa.paged_launches = 0
+    fa.decode_launches = 0
+    fa.paged_decode_launches = 0
     rn.launches = 0
     gg.launches = 0
     ssd.launches = 0
@@ -153,6 +164,8 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
+            "flash_attention_decode": fa.decode_launches,
+            "flash_attention_paged_decode": fa.paged_decode_launches,
             "rmsnorm": rn.launches, "grouped_gemm": gg.launches, "ssd_scan": ssd.launches}
 
 
@@ -167,10 +180,10 @@ LLAMA = "llama3.2-1b"
 MOE = "qwen2-moe-a2.7b"
 MAMBA = "mamba2-130m"
 ZAMBA = "zamba2-2.7b"
-# the kernels each path must launch: dense or paged KV, plus the grouped
-# GEMM for an MoE model
-DENSE_PATH = ("flash_attention", "rmsnorm")
-PAGED_PATH = ("flash_attention_paged", "rmsnorm")
+# the kernels each path must launch: dense or paged KV (decode steps on the
+# split-KV decode kernel), plus the grouped GEMM for an MoE model
+DENSE_PATH = ("flash_attention", "flash_attention_decode", "rmsnorm")
+PAGED_PATH = ("flash_attention_paged", "flash_attention_paged_decode", "rmsnorm")
 
 
 def path(arch: str, paged: bool) -> tuple:
@@ -241,6 +254,13 @@ def flash_cases(dev, dtype, arch=LLAMA):
                          {}),
         "chunk_one_row_depth1984": (
             flash_inputs(dev, dtype, sq=64, depths=[1984], q_lens=[64], **hk), {}),
+        # the decode kernel's fixed cost (8 rows at depth 0: one key each,
+        # the merge launched and idle) and its deepest split walk (one row
+        # at depth 2047: 8 or 16 splits in parallel, then the merge)
+        "decode_depth0": (flash_inputs(dev, dtype, sq=1, depths=[0] * 8, q_lens=[1] * 8, **hk),
+                          {}),
+        "decode_one_row_depth2047": (
+            flash_inputs(dev, dtype, sq=1, depths=[2047], q_lens=[1], **hk), {}),
     }
 
 
@@ -470,8 +490,9 @@ def phase_check(dev) -> dict:
             log(f"[check] flash_attention_paged d128 {case} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}; vs the dense kernel on the gathered view: max abs diff "
                 f"{(out.float() - dense.float()).abs().max().item():.3e}")
-        # zamba2-2.7b's shared attention: head dim 80, no GQA (the 8-lane
-        # decode tile); every output dim held to the plain version
+        # zamba2-2.7b's shared attention: head dim 80, no GQA (decode rows on
+        # the split-KV decode kernel); every output dim held to the plain
+        # version
         for case, (inp, extra) in flash_cases(dev, dtype, ZAMBA).items():
             out = run_flash(fa.flash_attention, inp, extra)
             err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
@@ -512,6 +533,61 @@ def phase_check(dev) -> dict:
                 f"{tuple(inp['w'].shape)}: {int((gs > 0).sum())} experts with rows, largest "
                 f"group {int(gs.max())}: max abs err {err:.3e}")
             del out
+    return errs
+
+
+def phase_check_decode(dev) -> dict:
+    """The split-KV decode kernel against its plain version at each served
+    model's heads, one query a row at depths 0, split-1, split, split+1 and
+    2047 and an idle row (q_len 0), plain and with window 64 + softcap 50;
+    dense, and paged at P 16, 48 and 64.  Paged must equal the dense kernel
+    on the gathered view bit for bit, with the trash page's garbage and with
+    it zeroed; every case launched twice must give the same bits."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for arch, tag in ((LLAMA, "d64"), (MOE, "d128"), (ZAMBA, "d80")):
+            hk = HEADS[arch]
+            split = fa._decode_split(dtype, hk["d"])
+            depths, lens = [0, split - 1, split, split + 1, 2047, 1000], [1, 1, 1, 1, 1, 0]
+            for extra in ({}, {"window": 64, "softcap": 50.0}):
+                case = f"{tag}_decode_split" + ("_window_softcap" if extra else "")
+                inp = flash_inputs(dev, dtype, sq=1, depths=depths, q_lens=lens, **hk)
+                before = fa.decode_launches
+                out = run_flash(fa.flash_attention, inp, extra)
+                again = run_flash(fa.flash_attention, inp, extra)
+                ref = run_flash(fa.flash_attention_plain, inp, extra)
+                torch.cuda.synchronize(dev)
+                if fa.decode_launches != before + 2:
+                    raise AssertionError(f"flash {case}: the decode kernel did not run")
+                err = within(out, ref)
+                if not torch.equal(out, again) or out[lens.index(0)].any():
+                    raise AssertionError(f"flash {case}: two launches differ, or an idle row leaked")
+                errs[("flash_attention", case, dtype)] = err
+                p_errs = []
+                for P in (16, 48, 64):
+                    pin = paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=1, **hk)
+                    out = run_paged(fa.flash_attention_paged, pin, extra)
+                    again = run_paged(fa.flash_attention_paged, pin, extra)
+                    ref = run_paged(fa.flash_attention_paged_plain, pin, extra)
+                    dense = run_flash(fa.flash_attention, gathered(pin), extra)
+                    pin["pool_k"][-1] = 0
+                    pin["pool_v"][-1] = 0
+                    clean = run_paged(fa.flash_attention_paged, pin, extra)
+                    torch.cuda.synchronize(dev)
+                    p_err = within(out, ref)
+                    if not (torch.equal(out, dense) and torch.equal(out, clean)
+                            and torch.equal(out, again)):
+                        raise AssertionError(f"flash_paged {case} P{P}: not bit-equal to the dense "
+                                             "kernel, to the clean trash page, or to itself")
+                    if out[lens.index(0)].any():
+                        raise AssertionError(f"flash_paged {case} P{P}: an idle row leaked")
+                    errs[("flash_attention_paged", f"{case}_P{P}", dtype)] = p_err
+                    p_errs.append(p_err)
+                log(f"[check] flash decode kernel {case} {str(dtype)[6:]} depths {depths} q_lens "
+                    f"{lens}: dense max abs err {err:.3e}; paged P16/P48/P64 "
+                    + "/".join(f"{e:.3e}" for e in p_errs)
+                    + ", each bit-equal to the dense kernel (garbage and zeroed trash page) and "
+                    "two launches bit-identical")
     return errs
 
 
@@ -671,6 +747,24 @@ def phase_trace(eng, cfg, dev, tag="[trace]") -> None:
     eng.run_until_drained()
 
 
+def device_busy_s(prof) -> float:
+    """Seconds the card was busy: the union of the device-side events'
+    intervals, so kernels that overlap (the decode merge, launched as a
+    programmatic dependent, starts before the decode kernel ends) count
+    once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.time_range.end > e.time_range.start)
+    busy, lo, hi = 0, None, None
+    for s, e in spans:
+        if hi is None or s > hi:
+            busy += 0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return (busy + (0 if hi is None else hi - lo)) / 1e6
+
+
 def report_trace(prof, wall, tag, what) -> None:
     """Device time by kernel (device-side rows only) and the card's idle
     share of ``wall``."""
@@ -685,9 +779,10 @@ def report_trace(prof, wall, tag, what) -> None:
             dt = getattr(e, "self_cuda_time_total", 0)
         if dt > 0:
             rows.append((dt, e.key, e.count))
-    busy = sum(r[0] for r in rows) / 1e6
-    log(f"{tag} {what}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
-        f"device idle share {1 - busy / wall:.3f}" if rows else
+    busy = device_busy_s(prof)
+    log(f"{tag} {what}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (kernel "
+        f"times summed {sum(r[0] for r in rows) / 1e3:.2f} ms), device idle share "
+        f"{1 - busy / wall:.3f}" if rows else
         f"{tag} the profiler recorded no device time: not measured")
     for dt, key, n in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
@@ -828,7 +923,7 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
     log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
     require(cli_counts, want, "paged serve CLI")
     require_per_forward(cli_counts, cfg, "paged serve CLI")
-    if cli_counts["flash_attention"]:
+    if cli_counts["flash_attention"] or cli_counts["flash_attention_decode"]:
         raise AssertionError("the paged CLI run went through the dense flash kernel")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("the paged CLI left requests unserved")
@@ -1068,12 +1163,14 @@ class FusedDriver:
 def check_forwards(steps, cfg, what, *, kernels=True) -> None:
     """Every forward launched RMSNorm 2 per Mamba layer (+ 2 per shared
     block occurrence) + 1, the SSD kernel once per Mamba layer when S > 1
-    and never at S = 1, and (hybrid) one flash kernel per occurrence;
-    without kernels, nothing."""
+    and never at S = 1, and (hybrid) one flash kernel per occurrence (the
+    decode kernel at S = 1); without kernels, nothing."""
     n_shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    rep = cfg.n_heads // cfg.n_kv_heads
     for s, d in steps:
         want = {"rmsnorm": 2 * cfg.n_layers + 2 * n_shared + 1,
-                "ssd_scan": cfg.n_layers if s > 1 else 0, "flash_attention": n_shared}
+                "ssd_scan": cfg.n_layers if s > 1 else 0, "flash_attention": n_shared,
+                "flash_attention_decode": n_shared if s * rep <= fa._DECODE_ROWS else 0}
         if not kernels:
             want = {k: 0 for k in want}
         other = {k: v for k, v in d.items() if k not in want and v}
@@ -1109,8 +1206,8 @@ def phase_serve_ssm(dev, arch) -> dict:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         got = counts()
-        require(got, ("rmsnorm", "ssd_scan") + (("flash_attention",) if arch == ZAMBA else ()),
-                f"{arch} serve")
+        require(got, ("rmsnorm", "ssd_scan") + (
+            ("flash_attention", "flash_attention_decode") if arch == ZAMBA else ()), f"{arch} serve")
         check_forwards(drv.steps, cfg, f"{arch} serve")
         for o in out:
             if not (len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)):
@@ -1259,7 +1356,8 @@ def phase_parity_ssm(dev) -> dict:
             reset_counts()
             paged = greedy(model, params, prompt, 32, dev, page_tokens=64)
             paged_launches = counts()
-            require(paged_launches, ("flash_attention_paged", "ssd_scan", "rmsnorm"),
+            require(paged_launches, ("flash_attention_paged", "flash_attention_paged_decode",
+                                     "ssd_scan", "rmsnorm"),
                     "zamba2 paged")
             if paged_launches["flash_attention"]:
                 raise AssertionError("the paged zamba2 run went through the dense flash kernel")
@@ -1332,14 +1430,20 @@ def time_ssd(dev, flush, rows, dtype) -> None:
             f"{flops / 1e9:.3f} GFLOP), kernel/bound {r['ms'] / b_ms:.1f}x")
 
 
+SPIN_CYCLES = 1_000_000      # ~0.5 ms at the H100's clocks: longer than any call's enqueue
+
+
 def time_ms(dev, fn, *, iters=50, flush=None) -> float:
     """Mean device time of one call, from CUDA events, after a warm-up.
 
     With ``flush`` the L2 is flushed before every call, each call timed on
     its own (the main path finds each layer's KV cache cold: 33 MB per
-    layer at 8 slots x 2048).  Without, the calls run back to back behind a
-    spin kernel that keeps the card busy while the host enqueues them, so
-    host overhead between calls does not count."""
+    layer at 8 slots x 2048); a spin kernel after the flush keeps the card
+    busy while the host enqueues the call, so the time between the events
+    is the call's device time and not its host enqueue (without it, a
+    call whose enqueue outlasted the flush was timed at its enqueue).
+    Without, the calls run back to back behind one spin kernel, so host
+    overhead between calls does not count."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize(dev)
@@ -1356,6 +1460,7 @@ def time_ms(dev, fn, *, iters=50, flush=None) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -1402,6 +1507,40 @@ def sdpa_call(inp, extra):
     )
 
 
+SDPA_WARMUP = 10
+
+
+def time_sdpa(dev, inp, extra, **kw):
+    """The SDPA yardstick timed under each backend that takes the call
+    (one that raises is skipped), each after SDPA_WARMUP untimed calls (a
+    backend's first calls at a new shape build its plan), so the reading
+    depends neither on which backend PyTorch would pick nor on the order of
+    the cases: (fastest ms, its backend, every backend's ms), or (None,
+    None, {})."""
+    fn = sdpa_call(inp, extra)
+    if fn is None:
+        return None, None, {}
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sweep = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                for _ in range(SDPA_WARMUP):
+                    fn()
+                torch.cuda.synchronize(dev)
+                sweep[name] = time_ms(dev, fn, **kw)
+        except RuntimeError:
+            continue
+    if not sweep:
+        return None, None, {}
+    best = min(sweep, key=sweep.get)
+    return sweep[best], best, sweep
+
+
 def gg_work(inp) -> tuple:
     """Bytes the grouped GEMM must move and flops it must do for THESE
     inputs: the weights of each expert that has rows, read once; x read
@@ -1437,11 +1576,12 @@ def time_flash(dev, flush, rows, arch, prefix, dtype) -> None:
             continue
         byts, flops = flash_work(inp, extra)
         b_ms, b_by = bound(byts, flops, dtype)
+        lib_ms, lib, sweep = time_sdpa(dev, inp, extra, iters=20, flush=flush)
         rows[("flash_attention", prefix + case)] = dict(
             ms=time_ms(dev, lambda: run_flash(fa.flash_attention, inp, extra), flush=flush),
             plain_ms=time_ms(dev, lambda: run_flash(fa.flash_attention_plain, inp, extra),
                              iters=10, flush=flush),
-            library_ms=time_opt(dev, sdpa_call(inp, extra), iters=20, flush=flush),
+            library_ms=lib_ms, library=f"SDPA ({lib})" if lib else None, sdpa_sweep=sweep,
             bound_ms=b_ms, bound_by=b_by,
         )
 
@@ -1476,11 +1616,11 @@ def time_paged(dev, flush, rows, arch, prefix, dtype) -> None:
             dense_ms=time_ms(dev, lambda: run_flash(fa.flash_attention, dense_inp, {}),
                              flush=flush),
             gather_ms=time_ms(dev, gather, iters=20, flush=flush),
-            sdpa_ms=time_opt(dev, sdpa_call(dense_inp, {}), iters=20, flush=flush),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
         )
         r = rows[("flash_attention_paged", prefix + case)]
-        sd = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms"
+        r["sdpa_ms"], lib, _ = time_sdpa(dev, dense_inp, {}, iters=20, flush=flush)
+        sd = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms ({lib})"
         log(f"[time] flash_attention_paged {prefix}{case} P=64 bf16: kernel {r['ms']:.4f} ms, "
             f"dense kernel at the same depths {r['dense_ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, yardstick gather {r['gather_ms']:.4f} ms + SDPA {sd}, "
@@ -1546,6 +1686,9 @@ def phase_time(dev) -> dict:
         if name == "flash_attention_paged":
             continue
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        if r.get("library"):
+            lib += f" {r['library']}; every backend " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["sdpa_sweep"].items())
         log(f"[time] {name} {case} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
@@ -1555,12 +1698,36 @@ def phase_time(dev) -> dict:
     return rows
 
 
+def decode_entries(name, times, errs, served, served_paged, served_moe, served_moe_paged,
+                   served_zamba, parity_ssm) -> dict:
+    """The decode kernel's numbers at each head dim for the dense or the
+    paged flash row: this run's main-path launches, timed decode shape,
+    bound, plain and library times, and [check] error."""
+    paged = name.endswith("paged")
+    count = name + "_decode"
+    out = {}
+    for tag, prefix, run in (
+        ("d64", "", served_paged["cli"] if paged else served["cli"]),
+        ("d128", "d128_", served_moe_paged["cli"] if paged else served_moe["cli"]),
+        ("d80", "d80_", parity_ssm["paged_cli"] if paged else served_zamba["cli"]),
+    ):
+        t = times[(name, prefix + "decode")]
+        out[tag] = {
+            "launches": run[count], "max_abs_err": errs[(name, prefix + (
+                "decode_P64" if paged else "decode"), torch.bfloat16)],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        }
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     dev = card["dev"]
     phase_build()
     errs = phase_check(dev)
+    errs.update(phase_check_decode(dev))
     errs.update(phase_check_ssd(dev))
     served = phase_serve(dev)
     phase_parity(dev)
@@ -1575,6 +1742,10 @@ def main() -> int:
     phase_trace_ssm(dev)
     times = phase_time(dev)
 
+    # the split-KV decode kernel's numbers at each head dim, dense and paged
+    decode = {name: decode_entries(name, times, errs, served, served_paged, served_moe,
+                                   served_moe_paged, served_zamba, parity_ssm)
+              for name in ("flash_attention", "flash_attention_paged")}
     kernels = []
     for name, case, err_case, run, source, replaces in (
         ("flash_attention", "fused_chunk", "fused_chunk", served,
@@ -1620,9 +1791,18 @@ def main() -> int:
                 "bound_by": t80["bound_by"], "library_ms": t80["library_ms"],
                 "max_abs_err": errs[(name, "d80_" + err_case, torch.bfloat16)],
             }
+            row["decode"] = decode[name]
         if name == "grouped_gemm":
             row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name])
         kernels.append(row)
+    # the split-KV decode kernel (and its merge) as kernels of their own:
+    # D 64 at the top, D 128 and D 80 nested, as the chunk rows
+    for name, dec in decode.items():
+        kernels.append(dict(
+            name=name + "_decode", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:" + (
+                "120" if name.endswith("paged") else "41"),
+            shape="decode", d128=dec["d128"], d80=dec["d80"], **dec["d64"]))
     t_m, t_z = (times[("ssd_scan", f"{a}_fused_chunk")] for a in (MAMBA, ZAMBA))
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",

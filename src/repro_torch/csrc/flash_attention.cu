@@ -16,12 +16,13 @@
 //   m' = max(m, rowmax(s));  l' = l e^{m-m'} + rowsum(e^{s-m'});
 //   acc' = acc e^{m-m'} + e^{s-m'} v.
 //
-// Two tiles compute that function.  Both are one block per (query-row tile,
-// KV head, batch row), whose rows are (query position, head-in-group)
-// pairs, so the `rep` query heads sharing one KV head read each K/V tile
-// once — the TPU wrapper's per-group K/V broadcast and its 128-lane
-// head-dim pad are layout choices of the TPU and are not copied; K/V are
-// read straight from [B, Sk, KV, D] by stride.  Both walk 64-key tiles
+// Three kernels compute that function: a split-KV decode kernel for the
+// few-row shapes, and two chunk tiles.  The chunk tiles are one block per
+// (query-row tile, KV head, batch row), whose rows are (query position,
+// head-in-group) pairs, so the `rep` query heads sharing one KV head read
+// each K/V tile once — the TPU wrapper's per-group K/V broadcast and its
+// 128-lane head-dim pad are layout choices of the TPU and are not copied;
+// K/V are read straight from [B, Sk, KV, D] by stride.  Both walk 64-key tiles
 // through two shared-memory stages: `cp.async` copies the next tile in
 // 16-byte pieces, bypassing the registers, while the current one is
 // computed, so the copy latency is paid once and not per element.  K/V
@@ -66,25 +67,50 @@
 //   tests/test_torch_kernels.py bounds the difference with a plain model of
 //   this arithmetic, well inside the bf16 tolerance.
 //
-// The old tile (`flash_fwd_kernel`) keeps fp32 chunks (whose token-identity
-// checks need fp32 products; TF32 or bf16 would break them) and every
-// decode shape (Sq·rep <= 16), all on the fp32 CUDA cores.
-//   Bound: bytes.  A decode row (Sq = 1) reads its cache up to its depth
-//   once and does ~4 flops per key element for each of the `rep` query
-//   heads of its KV head.
-//   Design: Q is held in fp32 in shared memory and K/V are read as pairs of
-//   elements.  In a chunk tile (64 rows) four lanes own one query row: each
-//   scores 16 keys of the tile and accumulates D/4 output dims; a decode
-//   tile has 4 rows of 16 lanes, 4 keys and D/16 dims a lane, so no lane
-//   idles on the few rows of a decode step with rep >= 4 (llama3.2-1b's
-//   GQA); at D = 80 it has 4 rows of 8 lanes, 8 keys and 10 dims a lane,
-//   since 16 lanes would leave each an odd 5 dims and the pairwise P·V loop
-//   needs whole pairs (a static_assert holds every instance to that).
-//   Without GQA (rep = 1, qwen2-moe) a decode step has one row per (b, KV
-//   head), and three of the tile's four rows idle: a known waste, not yet
-//   addressed.  Row max and sum are reduced across a row's lanes with
-//   shuffles, and the probabilities are exchanged by shuffle for the P·V
-//   product.
+// The split-KV decode kernel (`flash_fwd_decode_kernel`, then
+// `flash_fwd_decode_merge_kernel`) takes every call with Sq·rep <= 16 rows
+// per (batch row, KV head): decode steps, and short query runs with few
+// heads, in fp32 and bf16, dense and paged.
+//   Bound: bytes.  A decode row reads its cache up to its depth once and
+//   does ~4 flops per key element for each of its `rep` query heads; at
+//   chip_smoke.py's decode shape the bound is a few microseconds, so what
+//   sets the time is how many bytes are in flight and how many SMs work.
+//   Design (FlashDecoding): the key axis is cut at fixed absolute positions
+//   into splits of L keys (256 in bf16, 128 in fp32); split s covers keys
+//   [s·L, (s+1)·L) of the (b, g) group's range.  The grid is (k_len / L,
+//   KV, B), so a deep row spreads over many SMs; a block whose split misses
+//   the group's range returns at once.  A block (128 threads, 4 warps) holds
+//   all Sq·rep rows of its group, so one read of a K/V row serves every
+//   query head of the group.  It issues the copies of ALL its L/64 key
+//   tiles at once, one `cp.async` stage each (128 KB in flight at D 128),
+//   after one pass that computes the tiles' key-row offsets into shared
+//   memory (a paged row's one table read, division and remainder, not one
+//   per 16-byte copy).  Each warp owns 16 keys of every tile and keeps its
+//   own online softmax: two lanes a key score it over half the dims each
+//   (K in 16-byte pieces, Q in fp32 from shared memory, every row's dot
+//   product in registers), one shuffle joins the halves, four give the
+//   warp's row max; P goes through shared memory, and P·V runs with dim
+//   pairs over lanes (2·32·ceil(D/64) >= D: a static_assert refuses an
+//   instance that would drop a dim, as 16 lanes of 5 dims at D 80 once
+//   would have).  At the
+//   end the four warps' (m, l, O) merge in shared memory in a fixed order.
+//   A group whose range lies in one split writes its output there; else
+//   each split writes fp32 (m, l, O[D]) per row to a workspace the wrapper
+//   allocates, and the merge kernel, launched by the same entry point on
+//   the same stream, combines splits s0..s1 with weights 2^(m_s - M).
+//   Scores, softmax, l and O are fp32 in both types (P is not rounded).
+//   The split boundaries depend on neither k_len nor the card, and no sum
+//   uses atomics, so dense and paged at the same depths, and two launches,
+//   give the same bits.
+//
+// The old tile (`flash_fwd_kernel`) keeps fp32 chunks (Sq·rep > 16), whose
+// token-identity checks need fp32 products (TF32 or bf16 would break them),
+// on the fp32 CUDA cores.  Q is held in fp32 in shared memory and K/V are
+// read as pairs of elements; four lanes own one of the tile's 64 query
+// rows: each scores 16 keys of a tile and accumulates D/4 output dims (a
+// static_assert holds every instance to whole dim pairs a lane).  Row max
+// and sum are reduced across a row's lanes with shuffles, and the
+// probabilities are exchanged by shuffle for the P·V product.
 //
 // Paged K/V.  One kernel body, two ways to address a key row: the address
 // of key kp of batch row b, KV head g, is a template policy.  `DenseKV`
@@ -93,18 +119,20 @@
 // negative (unmapped) entry read as the trash page num_pages, as the TPU
 // wrapper clamps it.  The logical key axis is pages_per_slot·P long and the
 // softmax, masks, tiles and key-range trimming are the dense kernel's, so
-// both compute the same function in the same order.  The copy loop tests
-// `kp < k_end` before it reads the table, so no entry past a row's last
-// visible key is read and a tile that straddles into unmapped pages copies
-// zeros.  The 16-byte copies are per key row, so any page size P >= 1
-// works: a 64-key tile need not line up with pages (the TPU kernel pins its
-// key block to P; that is a choice of its DMA, not copied).
+// both compute the same function in the same order.  Every kernel tests
+// that a key is in the block's range before it reads the table, so no
+// entry past a row's last visible key is read and a tile that straddles
+// into unmapped pages copies zeros.  The 16-byte copies are per key row, so
+// any page size P >= 1 works: a 64-key tile need not line up with pages
+// (the TPU kernel pins its key block to P; that is a choice of its DMA,
+// not copied).
 //
 // Paged bound: bytes, the same mapped K/V bytes as dense at the same depths
 // plus the table entries read (one int32 per page a tile touches, 4 bytes
-// per P·KV·D·2 K/V bytes, under 0.01% at P = 64).  The table read costs an
-// integer division and one cached 4-byte load per 16-byte copy; the loads
-// of one key row hit the same entry in L1.
+// per P·KV·D·2 K/V bytes, under 0.01% at P = 64).  In the two chunk tiles
+// the table read costs an integer division and one cached 4-byte load per
+// 16-byte copy (the loads of one key row hit the same entry in L1); the
+// decode kernel does it once a key row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,7 +144,6 @@ namespace {
 constexpr float NEG = -1e30f;   // masked score (matches the TPU kernel)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) { *out = __float2bfloat16(v); }
 
@@ -172,6 +199,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// programmatic dependent launch: let the grid launched after this one on
+// the stream start now, and (in that grid) wait until this one's memory is
+// complete and visible; both are no-ops without the launch attribute
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::); }
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 // two floats rounded to one bf16 pair, lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -201,9 +234,9 @@ struct PagedKV {
   }
 };
 
-// The tensor-core tile's key range and tile copy.  `flash_fwd_kernel` keeps
-// its own inline copies of both: routed through these helpers, its D 80
-// decode instance compiled to more registers and ran slower on the card.
+// The key range (the tensor-core tile and the decode kernels) and the tile
+// copy (the tensor-core tile).  `flash_fwd_kernel` keeps its own inline
+// copies of both, as it was measured.
 
 // the keys [start, end) that the tile rows row_lo..row_hi of one batch row
 // may see: from the first row's first in-window key to the last valid
@@ -249,22 +282,29 @@ __device__ __forceinline__ void load_kv_tile(T* Kst, T* Vst, const T* k, const T
   cp_async_commit();
 }
 
-// shared memory: Q tile in fp32 [BR][D+1], then two stages of K and V tiles
-// in the input type, rows padded by 16 bytes against bank conflicts
-template <typename T, int D, int BR>
+// the fp32 chunk tile: CT_BR query rows per block, CT_TPR lanes per row
+constexpr int CT_BR = 64;
+constexpr int CT_TPR = 4;
+
+// shared memory: Q tile in fp32 [BR][D+1], then two stages of K and V tiles,
+// rows padded by 16 bytes against bank conflicts
+template <int D>
 constexpr size_t smem_bytes() {
-  return static_cast<size_t>(BR) * (D + 1) * sizeof(float) +
-         4ull * BK * (D + 16 / sizeof(T)) * sizeof(T);
+  return static_cast<size_t>(CT_BR) * (D + 1) * sizeof(float) +
+         4ull * BK * (D + 16 / sizeof(float)) * sizeof(float);
 }
 
-// BR query rows per block, TPR lanes per row (a power of two <= 32); Addr
-// is DenseKV or PagedKV
-template <typename T, int D, int BR, int TPR, typename Addr>
-__global__ void __launch_bounds__(BR * TPR)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, const int* __restrict__ q_offsets,
-                 const int* __restrict__ q_lens, int Sq, int H, Addr addr, int KV, float scale,
-                 int causal, int window, float softcap, int k_len) {
+// fp32 only; Addr is DenseKV or PagedKV
+template <int D, typename Addr>
+__global__ void __launch_bounds__(CT_BR * CT_TPR)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 const int* __restrict__ q_offsets, const int* __restrict__ q_lens, int Sq, int H,
+                 Addr addr, int KV, float scale, int causal, int window, float softcap,
+                 int k_len) {
+  using T = float;
+  constexpr int BR = CT_BR;                 // query rows per block
+  constexpr int TPR = CT_TPR;               // lanes per row (a power of two <= 32)
   // each lane owns DPT/2 dim pairs 2*(i*TPR + t): D must split into whole
   // pairs per lane, or the dims past the last pair are never accumulated
   // nor written
@@ -693,6 +733,486 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// ------------------------------------------------------- split-KV decode
+constexpr int DEC_NT = 128;           // threads a block
+constexpr int DEC_NW = DEC_NT / 32;   // warps: each owns 16 keys of every tile
+constexpr int DEC_ROWS = 16;          // most rows (Sq·rep) a decode block holds
+
+// keys per split: the block's L / BK tiles are all in flight at once, one
+// shared-memory stage each.  256 keys where a K row is at most 128 bytes
+// (bf16 at D 64: a 72 KiB ring, two or three blocks an SM), else 128 (bf16 at D 80
+// and 128: rings of 44 and 68 KiB; fp32 up to 132 KiB).  A 256-key ring at
+// bf16 D 128 (136 KiB) left one block an SM and decoded slower on an H100
+template <typename T, int D>
+__host__ __device__ constexpr int dec_split() {
+  return D * sizeof(T) <= 128 ? 256 : 128;
+}
+
+// shared memory: the ring of K and V stages in the input type (rows padded
+// by 16 bytes), Q in fp32 [RMAX][D], each warp's P [16 keys][RMAX], and the
+// element offsets of the split's key rows
+template <typename T, int D>
+__host__ __device__ constexpr size_t dec_ring_bytes() {
+  return static_cast<size_t>(dec_split<T, D>() / BK) * 2 * BK * (D + 16 / sizeof(T)) * sizeof(T);
+}
+template <typename T, int D, int RMAX>
+constexpr size_t dec_smem_bytes() {
+  return dec_ring_bytes<T, D>() + static_cast<size_t>(RMAX) * D * sizeof(float) +
+         static_cast<size_t>(DEC_NW) * 16 * RMAX * sizeof(float) +
+         static_cast<size_t>(dec_split<T, D>()) * sizeof(long long);
+}
+
+// the splits s0..s1 that meet the (b, g) group's key range; a group that
+// sees no key has the one empty split 0
+struct SplitRange {
+  int s0, s1;
+};
+__device__ __forceinline__ SplitRange split_range(const KeyRange& kr, int L) {
+  if (kr.end <= kr.start) return {0, 0};
+  return {kr.start / L, (kr.end - 1) / L};
+}
+
+// wait until at most n copy groups are pending (n <= 3)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// 16 bytes of a shared-memory row as floats
+__device__ __forceinline__ void load_piece(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = y.x;
+    f[2 * i + 1] = y.y;
+  }
+}
+
+// One block per (split, KV head, batch row): the partial softmax of all
+// rows of the group over the split's keys.  RMAX >= Sq·rep is the rows the
+// registers hold (1, 4 or 16).  ws_o [B, KV, nsplit, rows, D] and ws_ml
+// [B, KV, nsplit, rows] take the partials of a group with several splits.
+template <typename T, int D, int RMAX, typename Addr>
+__global__ void __launch_bounds__(DEC_NT)
+flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        T* __restrict__ out, float* __restrict__ ws_o, float2* __restrict__ ws_ml,
+                        const int* __restrict__ q_offsets, const int* __restrict__ q_lens, int Sq,
+                        int H, Addr addr, int KV, float scale, int causal, int window,
+                        float softcap, int k_len) {
+  constexpr int L = dec_split<T, D>();
+  constexpr int NSTAGE = L / BK;
+  constexpr int LDK = D + 16 / sizeof(T);   // K/V row in elements, padded 16 bytes
+  constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte piece
+  constexpr int CPR = D / EPC;              // pieces per key row
+  constexpr int HALF = D / 2;               // dims each of a key's two lanes scores
+  constexpr int HPC = HALF / EPC;           // pieces per half row
+  constexpr int NPL = (HALF + 31) / 32;     // dim pairs a lane accumulates in P·V
+  static_assert(L % BK == 0 && NSTAGE >= 1 && NSTAGE <= 4, "a split is 1-4 key tiles");
+  static_assert(2 * HPC * EPC == D, "the two halves must score every dim in whole pieces");
+  static_assert(32 * NPL * 2 >= D, "P·V must accumulate every dim");
+  static_assert(RMAX == 1 || RMAX % 4 == 0, "P rows are read as float4");
+  static_assert(static_cast<size_t>(DEC_NW) * RMAX * (D + 2) * sizeof(float) <=
+                    dec_ring_bytes<T, D>(),
+                "the warps' partials must fit in the ring they reuse");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);   // stage i: K at 2i·BK·LDK, V after it
+  float* Qs = reinterpret_cast<float*>(smem_raw + dec_ring_bytes<T, D>());
+  float* Ps = Qs + RMAX * D;
+  long long* koff = reinterpret_cast<long long*>(Ps + DEC_NW * 16 * RMAX);
+
+  pdl_trigger();   // the merge grid may launch; it waits for this one's end
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int jj = lane & 15;    // the lane's key among its warp's 16 of a tile
+  const int hh = lane >> 4;    // the half of the dims it scores
+  const int s = blockIdx.x;
+  const int g = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int rep = H / KV;
+  const int rows = Sq * rep;
+  const int q_off = q_offsets[b];
+  const int q_len = q_lens[b];
+
+  const KeyRange kr = key_range(0, rows - 1, rep, Sq, q_off, q_len, causal, window, k_len);
+  const SplitRange sr = split_range(kr, L);
+  if (s < sr.s0 || s > sr.s1) return;       // block-uniform: the split misses the range
+  const int lo_blk = max(kr.start, s * L);
+  const int hi_blk = min(kr.end, (s + 1) * L);
+  const int t0 = lo_blk & ~(BK - 1);         // tiles at absolute multiples of BK
+  const int n_tiles = hi_blk > lo_blk ? (hi_blk - t0 + BK - 1) / BK : 0;
+
+  // every key row's element offset, once (a paged row's one table read);
+  // -1 outside [lo_blk, hi_blk), tested before the table is read
+  for (int j = tid; j < n_tiles * BK; j += DEC_NT) {
+    const int kp = t0 + j;
+    koff[j] = kp >= lo_blk && kp < hi_blk ? addr.row(b, kp, KV, g) * D : -1;
+  }
+  __syncthreads();   // the offsets visible to every copying thread
+
+  // the copies of every tile of the split, one group each (always NSTAGE
+  // groups, so the waits below count the same in every block)
+#pragma unroll
+  for (int i = 0; i < NSTAGE; ++i) {
+    if (i < n_tiles) {
+      T* Kst = ring + 2 * i * BK * LDK;
+      T* Vst = Kst + BK * LDK;
+      for (int e = tid; e < BK * CPR; e += DEC_NT) {
+        const int j = e / CPR;
+        const int c = e % CPR;
+        const long long off = koff[i * BK + j];
+        const bool in = off >= 0;
+        cp_async16(Kst + j * LDK + c * EPC, k + (in ? off + c * EPC : 0), in ? 16 : 0);
+        cp_async16(Vst + j * LDK + c * EPC, v + (in ? off + c * EPC : 0), in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  }
+  // Q rows in fp32, zeros past the last row, read while the copies fly
+  // (the first tile's barrier makes them visible)
+  for (int e = tid; e < RMAX * CPR; e += DEC_NT) {
+    const int r = e / CPR;
+    const int c = e % CPR;
+    float f[EPC];
+    if (r < rows) {
+      load_piece(q + ((b * Sq + r / rep) * H + g * rep + r % rep) * D + c * EPC, f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) f[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < EPC; i += 4)
+      *reinterpret_cast<float4*>(Qs + r * D + c * EPC + i) = make_float4(f[i], f[i + 1], f[i + 2],
+                                                                         f[i + 3]);
+  }
+
+  // each row's visible keys [lo, hi) (empty for a row past rows or q_len)
+  int lo[RMAX], hi[RMAX];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    const int qi = r / rep;
+    const bool valid = r < rows && qi < q_len;
+    const int qp = q_off + qi;
+    lo[r] = window > 0 ? qp - window + 1 : 0;
+    hi[r] = valid ? (causal ? min(kr.end, qp + 1) : kr.end) : 0;
+  }
+  // scores in log2 units, s = x log2 e, so 2^(s - m) = e^(x - m / log2 e)
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
+  const float cap_log2 = softcap * LOG2E;
+  const float scale_over_cap = softcap > 0.f ? scale / softcap : 0.f;
+
+  float m[RMAX], l[RMAX], o[RMAX][NPL][2];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    m[r] = NEG;
+    l[r] = 0.f;   // this lane's share: the terms of its keys
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) o[r][i][0] = o[r][i][1] = 0.f;
+  }
+  float* Pw = Ps + warp * 16 * RMAX;
+  const float* qh = Qs + hh * HALF;
+
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_upto(NSTAGE - 1 - it);   // this thread's copies of tile `it` landed
+    __syncthreads();                       // and everyone else's (and Q, first time round)
+    const T* Kt = ring + 2 * it * BK * LDK;
+    const T* Vt = Kt + BK * LDK;
+    const int kw = 16 * warp;              // the warp's first key in the tile
+    const int kp = t0 + it * BK + kw + jj;
+
+    // this lane's half of key kw + jj's dot product with every row
+    float sc[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) sc[r] = 0.f;
+    const T* krow = Kt + (kw + jj) * LDK + hh * HALF;
+#pragma unroll
+    for (int c = 0; c < HPC; ++c) {
+      float kf[EPC];
+      load_piece(krow + c * EPC, kf);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+#pragma unroll
+        for (int i = 0; i < EPC; i += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qh + r * D + c * EPC + i);
+          sc[r] = fmaf(qv.x, kf[i], sc[r]);
+          sc[r] = fmaf(qv.y, kf[i + 1], sc[r]);
+          sc[r] = fmaf(qv.z, kf[i + 2], sc[r]);
+          sc[r] = fmaf(qv.w, kf[i + 3], sc[r]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      // both lanes of the key add the same two halves: the same bits
+      float x = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
+      if (softcap > 0.f)
+        x = cap_log2 * tanhf(x * scale_over_cap);
+      else
+        x *= scale_log2;
+      if (kp < lo[r] || kp >= hi[r]) x = NEG;
+      // the row's max over the warp's 16 keys (lanes 16-31 mirror 0-15)
+      float mx = x;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = fast_exp2(m[r] - m_new);
+      // a masked key (NEG) contributes exactly 0: against a finite running
+      // max, and against none yet, where 0 is subtracted instead
+      const float p = fast_exp2(x - (m_new == NEG ? 0.f : m_new));
+      m[r] = m_new;
+      l[r] = l[r] * alpha + p;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        o[r][i][0] *= alpha;
+        o[r][i][1] *= alpha;
+      }
+      sc[r] = p;
+    }
+    if (hh == 0) {
+      if constexpr (RMAX == 1) {
+        Pw[jj] = sc[0];
+      } else {
+#pragma unroll
+        for (int r = 0; r < RMAX; r += 4)
+          *reinterpret_cast<float4*>(Pw + jj * RMAX + r) =
+              make_float4(sc[r], sc[r + 1], sc[r + 2], sc[r + 3]);
+      }
+    }
+    __syncwarp();
+
+    // O += P V over the warp's 16 keys: the lane owns dim pairs lane + 32 i
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      const T* vrow = Vt + (kw + j) * LDK;
+      float pj[RMAX];
+      if constexpr (RMAX == 1) {
+        pj[0] = Pw[j];
+      } else {
+#pragma unroll
+        for (int r = 0; r < RMAX; r += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(Pw + j * RMAX + r);
+          pj[r] = x.x;
+          pj[r + 1] = x.y;
+          pj[r + 2] = x.z;
+          pj[r + 3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int dp = lane + 32 * i;
+        if (dp < HALF) {
+          const float2 vf = load2(vrow + 2 * dp);
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r) {
+            o[r][i][0] = fmaf(pj[r], vf.x, o[r][i][0]);
+            o[r][i][1] = fmaf(pj[r], vf.y, o[r][i][1]);
+          }
+        }
+      }
+    }
+    __syncwarp();   // every lane has read P before the next tile rewrites it
+  }
+
+  // the warp's row sums: its 16 key lanes' shares
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 4);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 8);
+  }
+  __syncthreads();   // every warp is done with the ring: it now takes their partials
+  float* Os = reinterpret_cast<float*>(smem_raw);   // [NW][RMAX][D]
+  float* Ms = Os + DEC_NW * RMAX * D;               // [NW][RMAX]
+  float* Ls = Ms + DEC_NW * RMAX;
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int dp = lane + 32 * i;
+      if (dp < HALF)
+        *reinterpret_cast<float2*>(Os + (warp * RMAX + r) * D + 2 * dp) =
+            make_float2(o[r][i][0], o[r][i][1]);
+    }
+    if (lane == 0) {
+      Ms[warp * RMAX + r] = m[r];
+      Ls[warp * RMAX + r] = l[r];
+    }
+  }
+  __syncthreads();
+
+  // the warps merged in order; the group's output when this is its only
+  // split, else this split's partial
+  const bool single = sr.s0 == sr.s1;
+  const long long part = ((b * KV + g) * gridDim.x + s) * rows;
+  for (int e = tid; e < rows * D; e += DEC_NT) {
+    const int r = e / D;
+    const int d = e % D;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < DEC_NW; ++w) M = fmaxf(M, Ms[w * RMAX + r]);
+    const float m_sub = M == NEG ? 0.f : M;
+    float lsum = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_NW; ++w) {
+      const float a = fast_exp2(Ms[w * RMAX + r] - m_sub);
+      lsum += a * Ls[w * RMAX + r];
+      acc += a * Os[(w * RMAX + r) * D + d];
+    }
+    if (single) {
+      const int qi = r / rep;
+      const bool valid = qi < q_len;
+      const float inv = valid ? 1.f / fmaxf(lsum, 1e-30f) : 0.f;
+      from_f32(valid ? acc * inv : 0.f, &out[((b * Sq + qi) * H + g * rep + r % rep) * D + d]);
+    } else {
+      ws_o[(part + r) * D + d] = acc;
+      if (d == 0) ws_ml[part + r] = make_float2(M, lsum);
+    }
+  }
+}
+
+// One block per (KV head, batch row): combine the partials of splits
+// s0..s1 of a group that has several, in order, into the output; rows past
+// q_len are written as zeros.  A group with one split was written by it.
+// Launched as a programmatic dependent of the decode kernel: its blocks
+// start while the decode grid drains, read what the decode kernel does not
+// write, and wait (griddepcontrol.wait) before they read the partials.
+// One thread a row takes the row's max and sum over the splits; the
+// weights 2^(m_s - M) of MERGE_CHUNK splits at a time go to shared memory,
+// and each thread sums O over the splits for its output elements.
+constexpr int MERGE_CHUNK = 32;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DEC_NT)
+flash_fwd_decode_merge_kernel(T* __restrict__ out, const float* __restrict__ ws_o,
+                              const float2* __restrict__ ws_ml, const int* __restrict__ q_offsets,
+                              const int* __restrict__ q_lens, int Sq, int H, int KV, int causal,
+                              int window, int k_len, int nsplit) {
+  constexpr int EPT = (DEC_ROWS * D + DEC_NT - 1) / DEC_NT;   // output elements a thread
+  __shared__ float wts[MERGE_CHUNK * DEC_ROWS];
+  __shared__ float m_row[DEC_ROWS], inv_row[DEC_ROWS];
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int rep = H / KV;
+  const int rows = Sq * rep;
+  const int q_len = q_lens[b];
+  const KeyRange kr =
+      key_range(0, rows - 1, rep, Sq, q_offsets[b], q_len, causal, window, k_len);
+  const SplitRange sr = split_range(kr, dec_split<T, D>());
+  if (sr.s0 == sr.s1) return;
+  pdl_wait();   // the decode grid's partials are complete and visible
+  const int n = sr.s1 - sr.s0 + 1;
+  const long long part = ((b * KV + g) * nsplit + sr.s0) * rows;
+  const float2* ml = ws_ml + part;              // [n][rows]
+  const float* os = ws_o + part * D;            // [n][rows][D]
+  if (tid < rows) {
+    float M = NEG;
+    for (int s = 0; s < n; ++s) M = fmaxf(M, ml[s * rows + tid].x);
+    const float m_sub = M == NEG ? 0.f : M;
+    float lsum = 0.f;
+    for (int s = 0; s < n; ++s) {
+      const float2 x = ml[s * rows + tid];
+      lsum += fast_exp2(x.x - m_sub) * x.y;
+    }
+    m_row[tid] = m_sub;
+    inv_row[tid] = tid / rep < q_len ? 1.f / fmaxf(lsum, 1e-30f) : 0.f;
+  }
+  float acc[EPT];
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) acc[i] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += MERGE_CHUNK) {
+    const int cn = min(MERGE_CHUNK, n - c0);
+    __syncthreads();   // m_row written (first chunk); the last chunk's weights read
+    for (int i = tid; i < cn * rows; i += DEC_NT)
+      wts[i] = fast_exp2(ml[c0 * rows + i].x - m_row[i % rows]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      const int e = tid + i * DEC_NT;
+      if (e < rows * D) {
+        const int r = e / D;
+#pragma unroll 4
+        for (int s = 0; s < cn; ++s)
+          acc[i] += wts[s * rows + r] * os[((c0 + s) * rows + r) * D + e % D];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const int e = tid + i * DEC_NT;
+    if (e < rows * D) {
+      const int r = e / D;
+      const int qi = r / rep;
+      from_f32(qi < q_len ? acc[i] * inv_row[r] : 0.f,
+               &out[((b * Sq + qi) * H + g * rep + r % rep) * D + e % D]);
+    }
+  }
+}
+
+// the decode kernel, then (when k_len spans several splits) the merge, on
+// one stream; ws holds ws_floats fp32 of scratch (null with one split)
+template <typename T, int D, int RMAX, typename Addr>
+int launch_decode(const void* q, const void* k, const void* v, void* out, void* ws,
+                  long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
+                  int H, Addr addr, int KV, float scale, int causal, int window, float softcap,
+                  int k_len, cudaStream_t stream) {
+  constexpr int L = dec_split<T, D>();
+  constexpr size_t smem = dec_smem_bytes<T, D, RMAX>();
+  const int rows = Sq * (H / KV);
+  const int nsplit = k_len > L ? (k_len + L - 1) / L : 1;
+  const long long parts = static_cast<long long>(B) * KV * nsplit * rows;
+  if (nsplit > 1 && (ws == nullptr || ws_floats < parts * (D + 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* ws_o = static_cast<float*>(ws);
+  float2* ws_ml = nsplit > 1 ? reinterpret_cast<float2*>(ws_o + parts * D) : nullptr;
+  auto kern = flash_fwd_decode_kernel<T, D, RMAX, Addr>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<dim3(nsplit, KV, B), DEC_NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), ws_o, ws_ml, q_offsets, q_lens, Sq, H, addr, KV, scale, causal,
+      window, softcap, k_len);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return static_cast<int>(e);
+  // the merge as a programmatic dependent launch: it may start while the
+  // decode grid drains, and waits for its partials inside
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KV, B);
+  cfg.blockDim = dim3(DEC_NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, flash_fwd_decode_merge_kernel<T, D>,
+                                             static_cast<T*>(out),
+                                             static_cast<const float*>(ws_o),
+                                             static_cast<const float2*>(ws_ml), q_offsets, q_lens,
+                                             Sq, H, KV, causal, window, k_len, nsplit));
+}
+
 template <int D, typename Addr>
 int launch_mma(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
                const int* q_lens, int B, int Sq, int H, Addr addr, int KV, float scale,
@@ -714,12 +1234,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int BR, int TPR, typename Addr>
+template <int D, typename Addr>
 int launch(const void* q, const void* k, const void* v, void* out, const int* q_offsets,
            const int* q_lens, int B, int Sq, int H, Addr addr, int KV, float scale,
            int causal, int window, float softcap, int k_len, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D, BR>();
-  auto kern = flash_fwd_kernel<T, D, BR, TPR, Addr>;
+  using T = float;
+  constexpr int BR = CT_BR;
+  constexpr size_t smem = smem_bytes<D>();
+  auto kern = flash_fwd_kernel<D, Addr>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -727,7 +1249,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* q_
   }
   const int rows_total = Sq * (H / KV);
   dim3 grid((rows_total + BR - 1) / BR, KV, B);
-  kern<<<grid, BR * TPR, smem, stream>>>(
+  kern<<<grid, BR * CT_TPR, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), q_offsets, q_lens, Sq, H, addr, KV, scale, causal, window, softcap,
       k_len);
@@ -735,38 +1257,40 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* q_
 }
 
 template <typename T, int D, typename Addr>
-int dispatch_rows(const void* q, const void* k, const void* v, void* out,
-                  const int* q_offsets, const int* q_lens, int B, int Sq, int H, Addr addr,
-                  int KV, float scale, int causal, int window, float softcap, int k_len,
-                  cudaStream_t stream) {
-  // decode batches carry only rep rows per (b, KV head): 4-row tiles with
-  // 16 lanes a row keep every lane busy.  A head dim that is not a multiple
-  // of 32 (80: zamba2-2.7b) takes 8 lanes a decode row, so each lane owns
-  // whole dim pairs (D % (2 * lanes) == 0).  bf16 chunks take the tensor-
-  // core tile; fp32 chunks the 64-row tile with 4 lanes a row
-  constexpr int DEC_TPR = D % 32 == 0 ? 16 : 8;
-  if (Sq * (H / KV) <= 16)
-    return launch<T, D, 4, DEC_TPR>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
-                                    causal, window, softcap, k_len, stream);
+int dispatch_rows(const void* q, const void* k, const void* v, void* out, void* ws,
+                  long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
+                  int H, Addr addr, int KV, float scale, int causal, int window, float softcap,
+                  int k_len, cudaStream_t stream) {
+  // up to 16 rows per (b, KV head): the split-KV decode kernel, its
+  // registers sized for 1, 4 or 16 rows.  Chunks: bf16 on the tensor-core
+  // tile, fp32 on the 64-row tile with 4 lanes a row
+  const int rows = Sq * (H / KV);
+#define DECODE_INSTANCE(RMAX)                                                                 \
+  return launch_decode<T, D, RMAX>(q, k, v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, \
+                                   addr, KV, scale, causal, window, softcap, k_len, stream)
+  if (rows == 1) DECODE_INSTANCE(1);
+  if (rows <= 4) DECODE_INSTANCE(4);
+  if (rows <= DEC_ROWS) DECODE_INSTANCE(DEC_ROWS);
+#undef DECODE_INSTANCE
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_mma<D>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale, causal,
                          window, softcap, k_len, stream);
   else
-    return launch<T, D, 64, 4>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,
-                               causal, window, softcap, k_len, stream);
+    return launch<D>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale, causal, window,
+                     softcap, k_len, stream);
 }
 
 // the instances built: head dim 64 (llama3.2-1b), 80 (zamba2-2.7b's shared
 // attention) and 128 (qwen2-moe-a2.7b), each in fp32 and bf16; any other
 // (D, dtype) returns cudaErrorInvalidValue
 template <typename Addr>
-int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
-                      const int* q_offsets, const int* q_lens, int B, int Sq, int H, int D,
-                      int dtype, Addr addr, int KV, float scale, int causal, int window,
-                      float softcap, int k_len, cudaStream_t s) {
+int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, void* ws,
+                      long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
+                      int H, int D, int dtype, Addr addr, int KV, float scale, int causal,
+                      int window, float softcap, int k_len, cudaStream_t s) {
 #define FLASH_INSTANCE(T, DIM)                                                                \
-  return dispatch_rows<T, DIM>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale,    \
-                               causal, window, softcap, k_len, s)
+  return dispatch_rows<T, DIM>(q, k, v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, addr, \
+                               KV, scale, causal, window, softcap, k_len, s)
   if (D == 64 && dtype == 0) FLASH_INSTANCE(float, 64);
   if (D == 64 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 64);
   if (D == 80 && dtype == 0) FLASH_INSTANCE(float, 80);
@@ -781,30 +1305,35 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  q_offsets
 // and q_lens are device int32 [B].  window <= 0 and softcap <= 0 disable
-// them.  Built for head dims 64 (llama3.2-1b), 80 (zamba2-2.7b) and 128
-// (qwen2-moe-a2.7b); other head dims come with the configs that need them.  Returns a
-// cudaError_t (0 = success); a shape the kernel does not take returns
+// them.  ws is the decode kernel's fp32 scratch of ws_floats elements: a
+// call with Sq·H/KV <= 16 rows and k_len over one split (256 keys in bf16,
+// 128 in fp32) needs B·KV·ceil(k_len / split)·Sq·(H/KV)·(D + 2); any other
+// call may pass null.  Built for head dims 64 (llama3.2-1b), 80
+// (zamba2-2.7b) and 128 (qwen2-moe-a2.7b); other head dims come with the
+// configs that need them.  Returns a cudaError_t (0 = success); a shape the
+// kernels do not take, or too small a workspace, returns
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   const int* q_offsets, const int* q_lens, int B, int Sq,
-                                   int H, int Sk, int KV, int D, int dtype, float scale,
-                                   int causal, int window, float softcap, int k_len,
-                                   void* stream) {
+                                   void* ws, long long ws_floats, const int* q_offsets,
+                                   const int* q_lens, int B, int Sq, int H, int Sk, int KV, int D,
+                                   int dtype, float scale, int causal, int window, float softcap,
+                                   int k_len, void* stream) {
   if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || k_len > Sk || k_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DenseKV addr{Sk};
-  return dispatch_head_dim(q, k, v, out, q_offsets, q_lens, B, Sq, H, D, dtype, addr, KV,
-                           scale, causal, window, softcap, k_len, s);
+  return dispatch_head_dim(q, k, v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, D, dtype,
+                           addr, KV, scale, causal, window, softcap, k_len, s);
 }
 
-// The paged kernel: K/V read through `table` [B, pages_per_slot] (device
+// The paged kernels: K/V read through `table` [B, pages_per_slot] (device
 // int32, negative = unmapped: read as the trash page num_pages) from the
 // pools pool_k/pool_v [num_pages_plus_1, P, KV, D]; the logical key axis is
 // pages_per_slot·P long.  Everything else as flash_attention_fwd.  The
 // caller keeps every non-negative entry below num_pages_plus_1.
 extern "C" int flash_attention_paged_fwd(const void* q, const void* pool_k, const void* pool_v,
-                                         const int* table, void* out, const int* q_offsets,
+                                         const int* table, void* out, void* ws,
+                                         long long ws_floats, const int* q_offsets,
                                          const int* q_lens, int B, int Sq, int H, int KV, int D,
                                          int P, int pages_per_slot, int num_pages_plus_1,
                                          int dtype, float scale, int causal, int window,
@@ -815,6 +1344,6 @@ extern "C" int flash_attention_paged_fwd(const void* q, const void* pool_k, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PagedKV addr{table, pages_per_slot, P, num_pages_plus_1 - 1};
   const int k_len = pages_per_slot * P;
-  return dispatch_head_dim(q, pool_k, pool_v, out, q_offsets, q_lens, B, Sq, H, D, dtype, addr,
-                           KV, scale, causal, window, softcap, k_len, s);
+  return dispatch_head_dim(q, pool_k, pool_v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, D,
+                           dtype, addr, KV, scale, causal, window, softcap, k_len, s);
 }

@@ -36,6 +36,7 @@ _log: str = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 
@@ -105,14 +106,18 @@ def load() -> ctypes.CDLL:
     lib.rmsnorm_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
     lib.rmsnorm_fwd.restype = _I
     lib.flash_attention_fwd.argtypes = [
-        _P, _P, _P, _P, _P, _P,            # q, k, v, out, q_offsets, q_lens
+        _P, _P, _P, _P,                    # q, k, v, out
+        _P, _LL,                           # decode workspace (or null), its fp32 count
+        _P, _P,                            # q_offsets, q_lens
         _I, _I, _I, _I, _I, _I, _I,        # B, Sq, H, Sk, KV, D, dtype
         _F, _I, _I, _F, _I,                # scale, causal, window, softcap, k_len
         _P,                                # stream
     ]
     lib.flash_attention_fwd.restype = _I
     lib.flash_attention_paged_fwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P,        # q, pool_k, pool_v, table, out, q_offsets, q_lens
+        _P, _P, _P, _P, _P,                # q, pool_k, pool_v, table, out
+        _P, _LL,                           # decode workspace (or null), its fp32 count
+        _P, _P,                            # q_offsets, q_lens
         _I, _I, _I, _I, _I,                # B, Sq, H, KV, D
         _I, _I, _I, _I,                    # P, pages_per_slot, num_pages_plus_1, dtype
         _F, _I, _I, _F,                    # scale, causal, window, softcap

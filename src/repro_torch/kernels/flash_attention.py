@@ -12,10 +12,13 @@ Layout is the model's: q
 ``kp > qp - window``.  Query rows with no visible key — idle rows
 (``q_len=0``) and the padding rows ``i >= q_lens[b]`` of a fused mixed
 batch — come out as exact zeros.  Scores are fp32 (optionally tanh
-soft-capped); the output has q's type.  On the card a bf16 chunk
-(``Sq · H / KV > 16``) runs the tensor-core tile, which rounds the
-probabilities to bf16 for P·V; fp32 inputs and decode shapes keep them in
-fp32, as the plain version does.
+soft-capped); the output has q's type.  On the card a call with at most
+16 rows (``Sq · H / KV``) per (batch row, KV head) — every decode step —
+runs the split-KV decode kernel, which cuts the key axis into fixed
+splits of :func:`_decode_split` keys and merges their partial softmaxes
+(fp32 scratch from :func:`_decode_workspace`); a bf16 chunk runs the tensor-core
+tile, which rounds the probabilities to bf16 for P·V; fp32 chunks and the
+decode kernel keep them in fp32, as the plain version does.
 
 The paged kernel reads K/V from page pools ``[num_pages + 1, P, KV, D]``
 through a page table ``[B, pages_per_slot]``: logical key ``t`` of row b
@@ -34,15 +37,27 @@ import torch
 from . import _build
 
 # kernel launches since the counts were last reset (the CPU path never
-# counts): the dense kernel's and the paged kernel's
+# counts): every dense and every paged call, and of those the calls that
+# ran the split-KV decode kernel (at most _DECODE_ROWS rows per KV head)
 launches = 0
 paged_launches = 0
+decode_launches = 0
+paged_decode_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernel is built for: llama3.2-1b's (64), zamba2-2.7b's
 # shared attention (80) and qwen2-moe-a2.7b's (128); the others come with
 # the slices of the configs that need them
 _HEAD_DIMS = (64, 80, 128)
+# the decode kernel's most rows per (batch row, KV head)
+# (csrc/flash_attention.cu: DEC_ROWS)
+_DECODE_ROWS = 16
+
+
+def _decode_split(dtype: torch.dtype, head_dim: int) -> int:
+    """Keys per split of the decode kernel (csrc/flash_attention.cu:
+    dec_split): 256 where a K row is at most 128 bytes, else 128."""
+    return 256 if head_dim * dtype.itemsize <= 128 else 128
 
 
 def attn_mask(q_pos, k_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
@@ -157,6 +172,27 @@ def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
         raise ValueError(f"{what}: q, k and v must share one device")
 
 
+def _is_decode(q: torch.Tensor, kv: int) -> bool:
+    """Whether the card runs this call on the split-KV decode kernel."""
+    return q.shape[1] * (q.shape[2] // kv) <= _DECODE_ROWS
+
+
+def _decode_workspace(q: torch.Tensor, kv: int, k_len: int) -> Optional[torch.Tensor]:
+    """The decode kernel's fp32 scratch on q's device: each split's
+    ``(m, l)`` and ``O[D]`` per row, ``[B, KV, splits, rows, D + 2]``; None
+    where the call needs none (a chunk, or keys that fit one split)."""
+    b, sq, h, d = q.shape
+    rows = sq * (h // kv)
+    splits = -(-k_len // _decode_split(q.dtype, d))
+    if not _is_decode(q, kv) or splits <= 1:
+        return None
+    return torch.empty(b * kv * splits * rows * (d + 2), dtype=torch.float32, device=q.device)
+
+
+def _ptr_count(ws: Optional[torch.Tensor]) -> tuple:
+    return (None, 0) if ws is None else (ws.data_ptr(), ws.numel())
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offsets: torch.Tensor, q_lens: Optional[torch.Tensor] = None,
@@ -167,7 +203,7 @@ def flash_attention(
     int32 (``q_lens=None`` → every row has ``Sq`` valid queries).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel, or
     raises on any input the kernel does not take."""
-    global launches
+    global launches, decode_launches
     b, sq, h, d = q.shape
     if q_lens is None:
         q_lens = torch.full((b,), sq, dtype=torch.int32, device=q.device)
@@ -181,11 +217,12 @@ def flash_attention(
     if k.shape[0] != b:
         raise ValueError(f"flash kernel: k has {k.shape[0]} rows for {b} query rows")
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, kv, sk)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *_ptr_count(ws),
             q_offsets.data_ptr(), q_lens.data_ptr(),
             b, sq, h, sk, kv, d, _DTYPES[q.dtype],
             float(scale), int(bool(causal)), int(window or 0),
@@ -193,6 +230,7 @@ def flash_attention(
         )
     _build.check(err, "flash_attention_fwd")
     launches += 1
+    decode_launches += _is_decode(q, kv)
     return out
 
 
@@ -241,7 +279,7 @@ def flash_attention_paged(
     input the kernel does not take.  The kernel itself maps negative entries
     to the trash page at the table read, so the wrapper launches nothing but
     the kernel; a non-negative entry must name a page of the pool."""
-    global paged_launches
+    global paged_launches, paged_decode_launches
     b, sq, h, d = q.shape
     if q_lens is None:
         q_lens = torch.full((b,), sq, dtype=torch.int32, device=q.device)
@@ -258,16 +296,18 @@ def flash_attention_paged(
         table = table.to(device=q.device, dtype=torch.int32).contiguous()
     pages_per_slot = table.shape[1]
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, kv, pages_per_slot * page_tokens)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_paged_fwd(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
-            out.data_ptr(), q_offsets.data_ptr(), q_lens.data_ptr(),
+            out.data_ptr(), *_ptr_count(ws), q_offsets.data_ptr(), q_lens.data_ptr(),
             b, sq, h, kv, d, page_tokens, pages_per_slot, np1, _DTYPES[q.dtype],
             float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0),
             stream,
         )
     _build.check(err, "flash_attention_paged_fwd")
     paged_launches += 1
+    paged_decode_launches += _is_decode(q, kv)
     return out

@@ -10,8 +10,10 @@ Tolerances: fp32 2e-4 and bf16 3e-2 against the Pallas kernels (as
 ``test_fused_step.py``); on the card fp32 1e-4 max abs, bf16 atol 1e-2 +
 rtol 1e-2 (the two sides may round one fp32 value to neighbouring bf16
 values, one bf16 ulp: 2^-8 relative), which also holds a plain model of
-the bf16 chunk tile's arithmetic (P rounded to bf16 for P·V) against the
-plain version on the CPU; the SSD scan on the card as the
+the bf16 chunk tile's arithmetic (P rounded to bf16 for P·V), and one of
+the split-KV decode kernel's (fixed splits, per-warp online softmax, the
+(m, l, O) merges), against the plain version on the CPU; the SSD scan on
+the card as the
 reference holds its Pallas kernel: max error over max |ref| under 1e-5 in
 fp32 and 4e-2 in bf16, for y and the final state.
 
@@ -411,7 +413,7 @@ def test_flash_kernels_head_dim_128_without_gqa_on_card(cuda_device, dtype, page
 @pytest.mark.parametrize("sq", [1, 64], ids=["decode", "fused_chunk"])
 def test_flash_kernels_head_dim_80_on_card(cuda_device, dtype, paged, sq):
     """zamba2-2.7b's shared attention: head dim 80, 32 query and 32 KV
-    heads, decode rows (the 8-lane decode tile) and fused chunks; every
+    heads, decode rows (the split-KV decode kernel) and fused chunks; every
     output dim, 64-79 included, is held to the plain version."""
     q_lens = [1] * 8 if sq == 1 else [64, 1, 0, 17, 64, 1, 17, 0]
     rng = np.random.default_rng(80 + sq)
@@ -527,6 +529,268 @@ def test_flash_chunk_tile_on_card(cuda_device, model, kv_layout, sq, window, sof
     assert torch.equal(out, dense)
     for bi, n in enumerate(q_lens):
         assert not out[bi, n:].any()
+
+# ------------------------------------------------- the split-KV decode kernel
+_NEG = -1e30
+_LOG2E = 1.4426950408889634
+
+
+def _merge_partials(parts):
+    """Merge (m, l, O) partial softmaxes (m in log2 units) in list order, as
+    the decode kernel merges its warps and then its splits: weights
+    2^(m - M), a partial that saw no key (m = NEG) contributing exactly 0."""
+    big_m = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big_m = torch.maximum(big_m, m)
+    m_sub = torch.where(big_m == _NEG, torch.zeros_like(big_m), big_m)
+    l_sum = torch.zeros_like(big_m)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        a = torch.exp2(m - m_sub)
+        l_sum = l_sum + a * l
+        acc = acc + a[..., None] * o
+    return big_m, l_sum, acc
+
+
+def _decode_split_model(q, k, v, q_offsets, q_lens, *, scale, window=None, softcap=None,
+                        split=256, bk=64, warps=4):
+    """The arithmetic of the split-KV decode kernel in plain PyTorch, fp32:
+    the key axis cut at absolute multiples of ``split``; in each split,
+    ``warps`` online softmaxes (log2 units), each over its ``bk / warps``
+    keys of every ``bk``-key tile; the warps' (m, l, O) merged in order,
+    then the splits'; P kept in fp32; rows past q_len (or with no visible
+    key) exact zeros."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    rows = sq * rep
+    qf = q.float().reshape(b, sq, kv, rep, d).permute(0, 2, 1, 3, 4).reshape(b, kv, rows, d)
+    kf, vf = k.float(), v.float()
+    vis = fa.visible_mask(q_offsets, q_lens, sq, sk, causal=True, window=window)
+    vis = vis[:, None, :, None, :].expand(b, kv, sq, rep, sk).reshape(b, kv, rows, sk)
+    kw = bk // warps
+    splits = []
+    for s0 in range(0, sk, split):
+        state = [(torch.full((b, kv, rows), _NEG), torch.zeros(b, kv, rows),
+                  torch.zeros(b, kv, rows, d)) for _ in range(warps)]
+        for kt in range(s0, min(s0 + split, sk), bk):
+            for w in range(warps):
+                keys = slice(kt + w * kw, min(kt + (w + 1) * kw, sk))
+                if keys.start >= sk:
+                    continue
+                x = torch.einsum("bgrd,bkgd->bgrk", qf, kf[:, keys])
+                x = (softcap * _LOG2E * torch.tanh(x * (scale / softcap)) if softcap
+                     else x * (scale * _LOG2E))
+                x = torch.where(vis[..., keys], x, torch.full_like(x, _NEG))
+                m, l, o = state[w]
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                m_sub = torch.where(m_new == _NEG, torch.zeros_like(m_new), m_new)
+                p = torch.exp2(x - m_sub[..., None])
+                state[w] = (m_new, l * alpha + p.sum(-1),
+                            o * alpha[..., None] + torch.einsum("bgrk,bkgd->bgrd", p, vf[:, keys]))
+        splits.append(_merge_partials(state))
+    _, l, o = _merge_partials(splits)
+    out = o / l.clamp_min(1e-30)[..., None]
+    qi = torch.arange(rows) // rep
+    valid = qi[None, :] < q_lens.long()[:, None]                       # [b, rows]
+    out = torch.where(valid[:, None, :, None], out, torch.zeros_like(out))
+    return out.reshape(b, kv, sq, rep, d).permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _decode_depths(dtype, d):
+    """Depths around the first split boundary, the cache's ends, and an
+    idle row (q_len 0)."""
+    split = fa._decode_split(dtype, d)
+    return [split - 1, split, split + 1, 0, 2047, 1000], [1, 1, 1, 1, 1, 0]
+
+
+def _attention_ref_rows(q, k, v, depths, q_lens, *, scale, window, softcap):
+    """The JAX oracle (``kernels/flash_attention/ref.py``) row by row at
+    each row's depth, GQA folded as the reference wrapper folds it; rows
+    past q_len are the kernel contract's zeros."""
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    jnp = _jax()
+    b, sq, h, d = q.shape
+    rep = h // k.shape[2]
+    jdt = jnp.float32 if q.dtype == torch.float32 else jnp.bfloat16
+    out = np.zeros((b, sq, h, d), np.float32)
+    for bi, (dp, n) in enumerate(zip(depths, q_lens)):
+        if n == 0:
+            continue
+        qb = jnp.asarray(q[bi].float().numpy(), jdt).transpose(1, 0, 2)            # [h, sq, d]
+        kb = jnp.repeat(jnp.asarray(k[bi].float().numpy(), jdt).transpose(1, 0, 2), rep, axis=0)
+        vb = jnp.repeat(jnp.asarray(v[bi].float().numpy(), jdt).transpose(1, 0, 2), rep, axis=0)
+        ob = attention_ref(qb, kb, vb, scale=scale, causal=True, window=window or 0,
+                           softcap=softcap or 0.0, q_offset=dp)
+        out[bi, :n] = np.asarray(ob, np.float32).transpose(1, 0, 2)[:n]
+    return out
+
+
+def _decode_inputs(rng, dtype, b, sq, sk, h, kv, d):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+            for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+
+@pytest.mark.parametrize("window,softcap", _WINDOW_SOFTCAP, ids=["plain", "window_softcap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", list(_MODEL_HEADS))
+def test_decode_split_model_matches_reference(model, dtype, window, softcap):
+    """A plain model of the decode kernel's split arithmetic (fixed splits,
+    per-warp online softmax in 64-key tiles, the (m, l, O) merges) against
+    the JAX oracle (2e-4 fp32, 3e-2 bf16, as the Pallas comparisons) and
+    against ``flash_attention_plain`` (the card tolerance), at each model's
+    heads, depths split-1 / split / split+1 / 0 / 2047 and an idle row; and
+    its result does not change when the key axis grows (2048 to 2112 keys,
+    garbage past every row): the split boundaries are absolute, which is
+    what keeps the paged kernel bit-equal to the dense one."""
+    h, kv, d = _MODEL_HEADS[model]
+    depths, q_lens = _decode_depths(dtype, d)
+    rng = np.random.default_rng(7)
+    q, k, v = _decode_inputs(rng, dtype, len(depths), 1, 2112, h, kv, d)
+    k[:, 2048:] = 1e4
+    v[:, 2048:] = -1e4
+    offs = torch.tensor(depths, dtype=torch.int32)
+    lens = torch.tensor(q_lens, dtype=torch.int32)
+    kw = dict(scale=d ** -0.5, window=window, softcap=softcap)
+    split = fa._decode_split(dtype, d)
+    out = _decode_split_model(q, k[:, :2048], v[:, :2048], offs, lens, split=split, **kw)
+    grown = _decode_split_model(q, k, v, offs, lens, split=split, **kw)
+    assert torch.equal(out, grown)
+    _assert_within(out, fa.flash_attention_plain(q, k[:, :2048], v[:, :2048], offs, lens,
+                                                 causal=True, **kw))
+    ref = _attention_ref_rows(q, k[:, :2048], v[:, :2048], depths, q_lens, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=tol, atol=tol)
+    assert not out[q_lens.index(0)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_model_short_queries(dtype):
+    """Sq > 1 with few heads (4 queries × llama's rep 4 = 16 rows, the most
+    a decode block holds), rows past q_len zero, against the plain version
+    and the JAX oracle."""
+    rng = np.random.default_rng(8)
+    depths, q_lens = [0, 300, 1800, 40], [4, 2, 4, 0]
+    q, k, v = _decode_inputs(rng, dtype, 4, 4, 2048, 32, 8, 64)
+    offs = torch.tensor(depths, dtype=torch.int32)
+    lens = torch.tensor(q_lens, dtype=torch.int32)
+    kw = dict(scale=0.125, window=None, softcap=None)
+    out = _decode_split_model(q, k, v, offs, lens, split=fa._decode_split(dtype, 64), **kw)
+    _assert_within(out, fa.flash_attention_plain(q, k, v, offs, lens, causal=True, **kw))
+    ref = _attention_ref_rows(q, k, v, depths, q_lens, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=tol, atol=tol)
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+def test_decode_workspace_sizes():
+    """The wrapper's scratch for the decode kernel: (D + 2) fp32 per row and
+    split (256 keys where a K row is at most 128 bytes, else 128), only for
+    calls of at most 16 rows whose keys span several splits."""
+    q = torch.zeros(8, 1, 32, 64, dtype=torch.bfloat16)
+    ws = fa._decode_workspace(q, 8, 2048)
+    assert ws.dtype == torch.float32 and ws.numel() == 8 * 8 * (2048 // 256) * 4 * 66
+    assert fa._decode_workspace(q.float(), 8, 2048).numel() == 8 * 8 * (2048 // 128) * 4 * 66
+    q128 = torch.zeros(8, 1, 16, 128, dtype=torch.bfloat16)          # 256-byte rows: 128 keys
+    assert fa._decode_workspace(q128, 16, 2048).numel() == 8 * 16 * (2048 // 128) * 1 * 130
+    assert fa._decode_workspace(q, 8, 256) is None                    # one split
+    assert fa._decode_workspace(torch.zeros(8, 5, 32, 64), 8, 2048) is None   # 20 rows: a chunk
+
+
+def _card_paged_from_dense(k, v, P, table_rng, depths, q_lens):
+    """Pools holding dense k/v's rows in pages of P tokens, in a random
+    order, every page a row's visible keys need mapped and the rest -1; the
+    trash page holds large finite garbage."""
+    b, sk, kv, d = k.shape
+    pps = -(-sk // P)
+    need = [-(-(dp + n) // P) for dp, n in zip(depths, q_lens)]
+    num = sum(need) + 3
+    ids = iter(table_rng.permutation(num).tolist())
+    table = torch.full((b, pps), -1, dtype=torch.int32)
+    pk = torch.zeros(num + 1, P, kv, d, dtype=k.dtype, device=k.device)
+    pv = torch.zeros_like(pk)
+    for bi, n in enumerate(need):
+        for j in range(n):
+            pg = next(ids)
+            table[bi, j] = pg
+            rows = min(P, sk - j * P)
+            pk[pg, :rows] = k[bi, j * P:j * P + rows]
+            pv[pg, :rows] = v[bi, j * P:j * P + rows]
+    pk[-1] = 1e4
+    pv[-1] = -1e4
+    return pk, pv, table.to(k.device)
+
+
+def _card_decode_case(device, dtype, *, h, kv, d, sq, depths, q_lens, kv_layout, window=None,
+                      softcap=None, seed=0):
+    """The decode kernel against the plain version; twice, bit-identical;
+    paged also bit-equal to the dense kernel on the gathered view, and with
+    the trash page zeroed instead of garbage."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = len(depths)
+    q = torch.randn(b, sq, h, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, 2048, kv, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, 2048, kv, d, generator=g, device=device).to(dtype)
+    offs = torch.tensor(depths, dtype=torch.int32, device=device)
+    lens = torch.tensor(q_lens, dtype=torch.int32, device=device)
+    kw = dict(scale=d ** -0.5, causal=True, window=window, softcap=softcap)
+    if kv_layout == "dense":
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, offs, lens, **kw)
+        again = fa.flash_attention(q, k, v, offs, lens, **kw)
+        assert fa.launches == before + 2
+        ref = fa.flash_attention_plain(q, k, v, offs, lens, **kw)
+    else:
+        pk, pv, table = _card_paged_from_dense(k, v, int(kv_layout[1:]),
+                                               np.random.default_rng(seed), depths, q_lens)
+        before = fa.paged_launches
+        out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+        again = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+        assert fa.paged_launches == before + 2
+        ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, **kw)
+        dense = fa.flash_attention(q, fa.paged_view(pk, table).contiguous(),
+                                   fa.paged_view(pv, table).contiguous(), offs, lens, **kw)
+        pk[-1] = 0
+        pv[-1] = 0
+        clean = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+        torch.cuda.synchronize(device)
+        assert torch.equal(out, dense)       # absolute splits: one order of sums
+        assert torch.equal(out, clean)       # the trash page is never read
+    torch.cuda.synchronize(device)
+    _assert_within(out, ref)
+    assert torch.equal(out, again)           # no atomics: the same bits twice
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", _WINDOW_SOFTCAP, ids=["plain", "window_softcap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_layout", ["dense", "P16", "P48", "P64"])
+@pytest.mark.parametrize("model", list(_MODEL_HEADS))
+def test_flash_decode_kernel_on_card(cuda_device, model, kv_layout, dtype, window, softcap):
+    """The split-KV decode kernel at each model's heads, one query a row at
+    depths split-1 / split / split+1 / 0 / 2047 and an idle row."""
+    h, kv, d = _MODEL_HEADS[model]
+    depths, q_lens = _decode_depths(dtype, d)
+    _card_decode_case(cuda_device, dtype, h=h, kv=kv, d=d, sq=1, depths=depths, q_lens=q_lens,
+                      kv_layout=kv_layout, window=window, softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_layout", ["dense", "P64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,h,kv,d", [(5, 4, 2, 64), (4, 32, 8, 64), (16, 16, 16, 128),
+                                       (2, 32, 32, 80), (3, 4, 4, 80)])
+def test_flash_decode_kernel_short_queries_on_card(cuda_device, sq, h, kv, d, dtype, kv_layout):
+    """Sq > 1 with Sq·H/KV <= 16 rows (10, 16, 16, 2 and 3 rows: the
+    16-row and 4-row register instances), rows past q_len zero."""
+    _card_decode_case(cuda_device, dtype, h=h, kv=kv, d=d, sq=sq,
+                      depths=[0, 255, 1900, 600], q_lens=[sq, sq - 1, 1, 0], kv_layout=kv_layout)
+
 
 # ----------------------------------------------------------- SSD scan (-m gpu)
 def _rel(out, ref) -> float:
