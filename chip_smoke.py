@@ -427,6 +427,13 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
+    # the bf16 grouped-GEMM kernel keeps its 64 accumulators a thread in
+    # registers: a spill would put them in local memory
+    report = _build.build_log().split("grouped_gemm_wgmma_kernel", 1)[-1].split("Compiling entry")[0]
+    if "0 bytes spill stores, 0 bytes spill loads" not in report:
+        raise AssertionError(f"grouped_gemm_wgmma_kernel spills or was not built: {report}")
+    log("[build] grouped_gemm_wgmma_kernel: " + " ".join(
+        line.strip() for line in report.splitlines() if "spill" in line or "Used" in line))
 
 
 def phase_check(dev) -> dict:
@@ -533,6 +540,57 @@ def phase_check(dev) -> dict:
                 f"{tuple(inp['w'].shape)}: {int((gs > 0).sum())} experts with rows, largest "
                 f"group {int(gs.max())}: max abs err {err:.3e}")
             del out
+    return errs
+
+
+def rows_sizes(m, *, e_real=60, e_pad=64, seed=SEED):
+    """Group sizes of ``m`` rows spread uniformly at random over the
+    ``e_real`` real of ``e_pad`` experts (any M, unlike ``routed_sizes``)."""
+    rng = np.random.default_rng(seed)
+    return np.bincount(rng.integers(0, e_real, size=m), minlength=e_pad).tolist()
+
+
+def phase_check_gg_split(dev) -> dict:
+    """The bf16 grouped GEMM's split-K (qwen2-moe's shapes): M on each side
+    of the split threshold this card's SM count gives (``gg.split_k``), a K
+    of 1416 whose last split ends in an 8-deep tail, two launches of one
+    input bit-identical, and every case again, interleaved three times
+    (a unit counter or an arrival counter left unreset would change an
+    output); bf16 within atol 1e-2 + rtol 1e-2 of the plain version."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dtype = torch.bfloat16
+    cases = {}
+    for proj, (k, n) in GG_SHAPES.items():
+        m_split = max(m for m in range(1, 1024) if gg.split_k(m, k, n, 64, sms) > 1)
+        for m in (m_split, m_split + 1):
+            cases[f"{proj}_m{m}"] = gg_inputs(dev, dtype, sizes=rows_sizes(m), k=k, n=n)
+        cases[f"{proj}_k1416_decode"] = gg_inputs(dev, dtype, sizes=routed_sizes(8), k=1416, n=n)
+    errs, refs, split = {}, {}, set()
+    for case, inp in cases.items():
+        m, k = inp["x"].shape
+        n = inp["w"].shape[2]
+        splits = gg.split_k(m, k, n, 64, sms)
+        split.add(splits > 1)
+        out = run_gg(gg.grouped_gemm, inp)
+        again = run_gg(gg.grouped_gemm, inp)
+        refs[case] = run_gg(gg.grouped_gemm_plain, inp)
+        torch.cuda.synchronize(dev)
+        err = within(out, refs[case])
+        if not torch.equal(out, again):
+            raise AssertionError(f"grouped_gemm {case}: two launches differ")
+        errs[("grouped_gemm", case, dtype)] = err
+        bounds = gg.split_ranges(k, splits)
+        log(f"[check] grouped_gemm split-K {case} bf16 x {tuple(inp['x'].shape)} w "
+            f"{tuple(inp['w'].shape)}: {splits} K split(s) {bounds}: max abs err {err:.3e}, two "
+            "launches bit-identical")
+    if split != {False, True}:
+        raise AssertionError("grouped_gemm split-K cases do not fall on both sides of the threshold")
+    worst = 0.0
+    for _ in range(3):
+        for case, inp in cases.items():
+            worst = max(worst, within(run_gg(gg.grouped_gemm, inp), refs[case]))
+    log(f"[check] grouped_gemm split-K: {len(cases)} shapes interleaved 3 times: max abs err "
+        f"{worst:.3e}")
     return errs
 
 
@@ -792,6 +850,10 @@ def report_trace(prof, wall, tag, what) -> None:
     if flash:
         log(f"{tag}   flash: " + "; ".join(f"{key.split('::', 1)[-1][:62]} {dt / 1e3:.3f} ms x{n}"
                                            for dt, key, n in flash))
+    gemm = sorted(r for r in rows if "grouped_gemm" in r[1])[::-1]
+    if gemm:
+        log(f"{tag}   grouped GEMM: " + "; ".join(f"{key.split('::', 1)[-1][:62]} {dt / 1e3:.3f} "
+                                                  f"ms x{n}" for dt, key, n in gemm))
     copies = sorted(r for r in rows if "Memcpy" in r[1] or "direct_copy" in r[1])[::-1]
     if copies:
         log(f"{tag}   copies: " + "; ".join(f"{key[:40]} {dt / 1e3:.3f} ms x{n}"
@@ -1468,6 +1530,20 @@ def time_ms(dev, fn, *, iters=50, flush=None) -> float:
     return float(np.mean([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def host_us(dev, fn, *, iters=200) -> float:
+    """Mean host time of one call (argument checks, allocation, launch),
+    the card kept busy by a spin kernel so that no call waits on it."""
+    fn()
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(40 * SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    return t / iters * 1e6
+
+
 def time_opt(dev, fn, **kw):
     return None if fn is None else time_ms(dev, fn, **kw)
 
@@ -1641,19 +1717,25 @@ def time_gg(dev, flush, rows, dtype) -> None:
             lib_out = lib()
             lib_out = torch.cat(lib_out) if isinstance(lib_out, list) else lib_out
             lib_err = (lib_out.float() - ref.float()).abs().max().item()
+            m = inp["x"].shape[0]
+            splits = gg.split_k(m, k, n, inp["w"].shape[0],
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
             r = rows[("grouped_gemm", f"{proj}_{routing}")] = dict(
                 ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm, inp), flush=flush),
                 plain_ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm_plain, inp), iters=10,
                                  flush=flush),
                 library_ms=time_ms(dev, lib, iters=20, flush=flush), library=label,
-                bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops,
+                bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops, splits=splits,
+                host_us=host_us(dev, lambda: run_gg(gg.grouped_gemm, inp)),
+                library_host_us=host_us(dev, lib),
             )
             log(f"[time] grouped_gemm {proj} {routing} bf16 x {tuple(inp['x'].shape)} w "
                 f"{tuple(inp['w'].shape)}, {int((inp['group_sizes'] > 0).sum())} experts with "
-                f"rows: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {label} "
-                f"{r['library_ms']:.4f} ms (max abs diff to plain {lib_err:.3e}), bound "
-                f"{b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-                f"kernel/bound {r['ms'] / b_ms:.1f}x")
+                f"rows, {splits} K split(s): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                f"ms, {label} {r['library_ms']:.4f} ms (max abs diff to plain {lib_err:.3e}), "
+                f"bound {b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+                f"kernel/bound {r['ms'] / b_ms:.2f}x; host time a call: kernel "
+                f"{r['host_us']:.1f} us, {label} {r['library_host_us']:.1f} us")
             del inp, ref, lib_out
 
 
@@ -1727,6 +1809,7 @@ def main() -> int:
     dev = card["dev"]
     phase_build()
     errs = phase_check(dev)
+    errs.update(phase_check_gg_split(dev))
     errs.update(phase_check_decode(dev))
     errs.update(phase_check_ssd(dev))
     served = phase_serve(dev)
@@ -1793,7 +1876,13 @@ def main() -> int:
             }
             row["decode"] = decode[name]
         if name == "grouped_gemm":
-            row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name])
+            # the four main-path shapes: gate/up and down at decode and chunk
+            row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name],
+                       shapes={c: {key: times[(name, c)][key] for key in (
+                           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
+                           "host_us", "library_host_us")}
+                           for c in ("gate_up_decode", "gate_up_chunk", "down_decode",
+                                     "down_chunk")})
         kernels.append(row)
     # the split-KV decode kernel (and its merge) as kernels of their own:
     # D 64 at the top, D 128 and D 80 nested, as the chunk rows

@@ -126,7 +126,9 @@ def load() -> ctypes.CDLL:
     lib.flash_attention_paged_fwd.restype = _I
     lib.grouped_gemm_fwd.argtypes = [
         _P, _P, _P, _P,                    # x, w, group_sizes, out
+        _P, _P,                            # split-K workspace, arrival counters (or null)
         _I, _I, _I, _I, _I,                # M, K, N, E, dtype
+        _I, _I,                            # K splits, SMs
         _P,                                # stream
     ]
     lib.grouped_gemm_fwd.restype = _I

@@ -16,9 +16,26 @@ kernel reads x's rows in place and masks the ragged row edge itself, so the
 TPU wrapper's megablocks re-pack (each group padded to whole row blocks in
 a copy of x, then the output gathered back) has no counterpart, and the
 group sizes stay on the device: the wrapper never reads them on the host.
+
+bf16, the serving type, runs a persistent kernel of two blocks an SM:
+each takes work units of (64-row tile of one expert, 128-column tile, K
+split) from a counter in device memory, a producer warp keeps a ring of
+TMA loads in flight and a warpgroup multiplies with ``wgmma``.  Where the
+call would give the SMs too few tiles (decode routing), :func:`split_k`
+cuts K into splits of whole 64-deep steps; each split writes an fp32
+partial to a workspace that this wrapper allocates, and the last split of a
+tile to finish, found by an arrival counter, sums the partials in split
+order (no float atomics: two launches are bit-identical).  The workspace
+and the counters (the unit counter and the arrivals, in a zeroed buffer
+that the kernel leaves zeroed) are kept per card and shared by every call;
+that is safe because the port launches on one stream, so two calls never
+run at once.  fp32 (the parity path) runs a CUDA-core kernel with no
+split.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -28,6 +45,67 @@ from . import _build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 kernel's row tile, column tile and K step (csrc/grouped_gemm.cu)
+BM, BN, BK = 64, 128, 64
+# split K when the expected output tiles are under WAVES waves of the SMs,
+# into enough splits for WAVES waves, each split at least MIN_STEPS K steps
+# deep and at most MAX_SPLITS of them (the kernel's bound)
+WAVES, MIN_STEPS, MAX_SPLITS = 4, 4, 16
+
+# per card, for the life of the process: the bf16 kernel's int32 counters
+# (the unit counter, the blocks done, the split tiles' arrivals), zeroed once
+# and left zeroed by every call; its fp32 split-K workspace, which every call
+# writes before it reads; and the SM count, the persistent grid's size
+_scratch: dict = {}
+_sms: dict = {}
+
+
+def split_k(m: int, k: int, n: int, e: int, sms: int) -> int:
+    """How many K splits the bf16 kernel takes for ``m`` rows over ``e``
+    experts, ``x [m, k] @ w [e, k, n]``, on a card of ``sms`` SMs.
+
+    The host knows m and e but not which experts have rows, so it expects
+    ``e (1 - (1 - 1/e)^m)`` of them to (uniform routing: ~25 at qwen2-moe's
+    decode, m = 32, e = 64), and at least ceil(m / 64) row tiles.  With
+    those tiles times the column tiles at WAVES (4) waves of the SMs or more
+    (chunk routing, m = 2048) K is not split; under it (decode routing) K is
+    cut into ceil(WAVES · sms / tiles) splits, each at least MIN_STEPS
+    64-deep steps, at most MAX_SPLITS, every one non-empty."""
+    n_k = -(-k // BK)
+    touched = e * (1.0 - (1.0 - 1.0 / e) ** m)
+    tiles = max(-(-m // BM), touched) * -(-n // BN)
+    if tiles >= WAVES * sms:
+        return 1
+    s = max(1, min(math.ceil(WAVES * sms / tiles), n_k // MIN_STEPS, MAX_SPLITS))
+    per = -(-n_k // s)
+    return -(-n_k // per)
+
+
+def split_ranges(k: int, splits: int) -> list:
+    """The ``[lo, hi)`` K range of each split, as the kernel cuts it: whole
+    64-deep steps, ceil(steps / splits) a split, the last ending at K."""
+    n_k = -(-k // BK)
+    per = -(-n_k // splits)
+    return [(s * per * BK, min(k, (s + 1) * per * BK)) for s in range(splits)]
+
+
+def _scratch_for(device: torch.device, name: str, numel: int, dtype: torch.dtype,
+                 zeroed: bool = False) -> torch.Tensor:
+    """A flat buffer of at least ``numel`` elements kept for the card: calls
+    share it because the port launches on one stream, so two never overlap
+    (one allocation less a call on a host-bound path)."""
+    buf = _scratch.get((device, name))
+    if buf is None or buf.numel() < numel:
+        make = torch.zeros if zeroed else torch.empty
+        buf = _scratch[(device, name)] = make(max(numel, 4096), dtype=dtype, device=device)
+    return buf
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -75,16 +153,28 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) ->
     if not (x.is_contiguous() and w.is_contiguous() and group_sizes.is_contiguous()):
         raise ValueError("grouped_gemm kernel needs contiguous inputs")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
+        # also what TMA needs: 16-byte-aligned bases, row strides of K and N
+        # (multiples of 8) elements
         raise ValueError("grouped_gemm kernel copies in 16-byte pieces: align x and w to 16 bytes")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     lib = _build.load()
+    sms = _sm_count(x.device)
+    splits, ws, counters = 1, None, None
+    if x.dtype == torch.bfloat16:
+        splits = split_k(m, k, n, e, sms)
+        counters = _scratch_for(x.device, "counters", 2 + (-(-m // BM) + e + 1) * -(-n // BN),
+                                torch.int32, zeroed=True)
+        if splits > 1:
+            ws = _scratch_for(x.device, "workspace", splits * m * n, torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.grouped_gemm_fwd(
             x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-            m, k, n, e, _DTYPES[x.dtype], stream,
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            m, k, n, e, _DTYPES[x.dtype], splits, sms, stream,
         )
     _build.check(err, "grouped_gemm_fwd")
     launches += 1

@@ -1,6 +1,6 @@
 """The port stands alone: every module of ``repro_torch`` imports with JAX
-blocked, and no source under ``src/repro_torch/`` (nor ``chip_smoke.py``)
-imports ``jax`` or anything of ``repro``."""
+blocked, and no source under ``src/repro_torch/`` (nor ``chip_smoke.py``
+and ``time_grouped_gemm.py``) imports ``jax`` or anything of ``repro``."""
 
 import os
 import re
@@ -18,7 +18,7 @@ _IMPORT = re.compile(
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_grouped_gemm.py"]
     return [f for f in files if f.exists()]
 
 

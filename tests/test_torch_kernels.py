@@ -962,6 +962,73 @@ def test_grouped_gemm_kernel_edge_groups_on_card(cuda_device, dtype, sizes):
     _card_gg_case(cuda_device, dtype, sizes=sizes, k=136, n=200)
 
 
+def _card_gg_inputs(device, *, sizes, k, n, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(int(sum(sizes)), k, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(len(sizes), k, n, generator=g, device=device) * k ** -0.5).to(torch.bfloat16)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=device)
+
+
+def _spread_rows(m, seed=0):
+    """``m`` rows spread at random over 60 real of 64 experts."""
+    rng = np.random.default_rng(seed)
+    return np.bincount(rng.integers(0, 60, size=m), minlength=64).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)], ids=["gate_up", "down"])
+@pytest.mark.parametrize("side", [0, 1], ids=["split", "whole"])
+def test_grouped_gemm_kernel_on_each_side_of_the_split_threshold_on_card(cuda_device, k, n, side):
+    """The largest M this card splits K for, and one row more (bf16)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    m = max(m for m in range(1, 1024) if gg.split_k(m, k, n, 64, sms) > 1) + side
+    assert (gg.split_k(m, k, n, 64, sms) > 1) == (side == 0)
+    _card_gg_case(cuda_device, torch.bfloat16, sizes=_spread_rows(m, seed=m), k=k, n=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1408, 2048])
+def test_grouped_gemm_kernel_k_tail_in_the_last_split_on_card(cuda_device, n):
+    """K = 1416 at decode routing: the last K split ends in an 8-deep tail,
+    zero-filled by the tensor map, never the next expert's rows."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    sizes = _routed_sizes(8, 4, 60, 64, seed=n)
+    assert gg.split_k(32, 1416, n, 64, sms) > 1
+    _card_gg_case(cuda_device, torch.bfloat16, sizes=sizes, k=1416, n=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [8, 512], ids=["decode", "chunk"])
+def test_grouped_gemm_kernel_two_launches_are_bit_identical_on_card(cuda_device, tokens):
+    """The split partials are summed in split order, with no float atomics,
+    and the unit schedule does not change a bit."""
+    x, w, gs = _card_gg_inputs(cuda_device, sizes=_routed_sizes(tokens, 4, 60, 64, seed=1),
+                               k=2048, n=1408)
+    a = gg.grouped_gemm(x, w, gs)
+    b = gg.grouped_gemm(x, w, gs)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_kernel_interleaved_shapes_on_card(cuda_device):
+    """Calls of different shapes and split counts, one after another, three
+    times: a unit or arrival counter left unreset by one call would break
+    the next."""
+    cases = [
+        _card_gg_inputs(cuda_device, sizes=_routed_sizes(8, 4, 60, 64, seed=2), k=2048, n=1408),
+        _card_gg_inputs(cuda_device, sizes=_routed_sizes(512, 4, 60, 64, seed=3), k=1408, n=2048),
+        _card_gg_inputs(cuda_device, sizes=_routed_sizes(8, 4, 60, 64, seed=4), k=1416, n=2048),
+        _card_gg_inputs(cuda_device, sizes=[3, 5, 0, 1], k=136, n=200),
+    ]
+    refs = [gg.grouped_gemm_plain(*c) for c in cases]
+    for _ in range(3):
+        for c, ref in zip(cases, refs):
+            out = gg.grouped_gemm(*c)
+            torch.cuda.synchronize(cuda_device)
+            _assert_within(out, ref)
+
+
 @pytest.mark.gpu
 def test_grouped_gemm_kernel_zeroes_rows_past_the_last_group(cuda_device):
     x = torch.randn(100, 64, device=cuda_device)

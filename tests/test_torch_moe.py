@@ -133,6 +133,47 @@ def test_grouped_gemm_plain_takes_k1408_with_empty_groups(dtype):
     assert not out[28:].any()
 
 
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048), (1416, 2048)],
+                         ids=["gate_up", "down", "k_tail"])
+def test_split_k_cuts_k_in_whole_steps_and_fills_the_card_at_decode(k, n):
+    """qwen2-moe's decode routing (M = 32 over 64 experts) on an H100's 132
+    SMs: K is split, the splits partition [0, K) in whole 64-deep steps
+    (only the last may end in a tail), and ~26 touched experts' tiles give
+    at least 4 × 132 units."""
+    s = gg.split_k(32, k, n, 64, 132)
+    assert 1 < s <= gg.MAX_SPLITS
+    ranges = gg.split_ranges(k, s)
+    assert len(ranges) == s and ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo % gg.BK == 0 and hi > lo for lo, hi in ranges)
+    assert all((hi - lo) % gg.BK == 0 for lo, hi in ranges[:-1])
+    assert 26 * -(-n // gg.BN) * s >= 4 * 132
+
+
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)], ids=["gate_up", "down"])
+def test_split_k_leaves_chunk_routing_whole(k, n):
+    """A fused chunk (M = 2048 over 64 experts) fills the card without
+    splitting K."""
+    assert gg.split_k(2048, k, n, 64, 132) == 1
+    assert gg.split_ranges(k, 1) == [(0, k)]
+
+
+def test_split_k_keeps_every_split_non_empty():
+    """Over a sweep of shapes and SM counts: 1 <= S <= MAX_SPLITS, each
+    split at least one step, and the kernel's cut (ceil(steps / S) a split)
+    leaves no split empty."""
+    for m in (1, 3, 8, 32, 47, 48, 88, 89, 200, 2048):
+        for k in (8, 64, 136, 512, 1408, 1416, 2048, 8192):
+            for n in (8, 200, 1408, 2048):
+                for e in (1, 4, 64, 128):
+                    for sms in (78, 132):
+                        s = gg.split_k(m, k, n, e, sms)
+                        steps = -(-k // gg.BK)
+                        assert 1 <= s <= min(gg.MAX_SPLITS, steps)
+                        assert (s - 1) * -(-steps // s) < steps
+                        assert [hi - lo > 0 for lo, hi in gg.split_ranges(k, s)] == [True] * s
+
+
 def test_grouped_gemm_wrapper_takes_plain_path_on_cpu():
     x, w, sizes = _gg_case(50, 64, 32, 5, [10, 0, 25, 5, 10])
     tx, tw, ts = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(sizes)
