@@ -57,8 +57,12 @@ Phases (any failure exits non-zero; nothing is caught):
    its plain version (fp32 and bf16 within 1e-5 and 4e-2 of max |ref|,
    for y and the final state) at the reference test's shapes, both
    models' heads at S = 1, 17, 64, 200, from zero and random initial
-   states, with the final state written over the initial one (as the
-   model updates its cache), and with dt zeroed past per-row lengths;
+   states, at mamba2's multi-chunk prefill (2 rows of 512 tokens, four
+   chunks, a carried state), with the final state written over the
+   initial one (as the model updates its cache), and with dt zeroed past
+   per-row lengths; every bf16 call must run the tensor-core kernel and
+   every fp32 call the CUDA-core one (counted by kernel), and two bf16
+   launches at each fused-chunk shape must be bit-identical;
    phase 3 also holds both flash kernels at zamba2's head dim 80 (32
    heads, no GQA) and RMSNorm at the SSM path's widths 768, 1536, 2560
    and 5120 (512 and 8 rows).
@@ -90,7 +94,8 @@ Phases (any failure exits non-zero; nothing is caught):
    GEMM at qwen2-moe's decode and chunk routings, beside
    ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
    ``torch.matmul`` loop, labelled so); the SSD kernel at both models'
-   fused-chunk shapes (no single PyTorch call computes the scan).
+   fused-chunk shapes and at mamba2's multi-chunk prefill (no single
+   PyTorch call computes the scan).
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -160,13 +165,16 @@ def reset_counts() -> None:
     rn.launches = 0
     gg.launches = 0
     ssd.launches = 0
+    ssd.mma_launches = 0
+    ssd.core_launches = 0
 
 
 def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
             "flash_attention_decode": fa.decode_launches,
             "flash_attention_paged_decode": fa.paged_decode_launches,
-            "rmsnorm": rn.launches, "grouped_gemm": gg.launches, "ssd_scan": ssd.launches}
+            "rmsnorm": rn.launches, "grouped_gemm": gg.launches, "ssd_scan": ssd.launches,
+            "ssd_scan_mma": ssd.mma_launches, "ssd_scan_core": ssd.core_launches}
 
 
 def require(got: dict, names, what: str) -> None:
@@ -1101,14 +1109,23 @@ def check_ssd_case(name, dtype, args, st, chunk, errs) -> None:
     log(f"[check-ssd] {name} {str(dtype)[6:]}: y max err / max |ref| {ey:.3e}, state {es:.3e}")
 
 
+# the multi-chunk prefill shape: mamba2's heads, 2 rows of 512 tokens
+# (four chunks of 128), from a carried state
+SSD_PREFILL = dict(b=2, s=512, init=True, **SSD_HEADS[MAMBA])
+
+
 def phase_check_ssd(dev) -> dict:
     """The SSD kernel against its plain version, fp32 and bf16: the
     reference test's shapes (G 2 and 4, S = 50 not a multiple of the
     chunk), both models' heads at S = 1, 17, 64 and 200, from a zero and a
-    random initial state; and dt zeroed past per-row lengths (the fused
-    step's padding) must leave the state of the unpadded rows."""
+    random initial state, and the multi-chunk prefill shape; dt zeroed past
+    per-row lengths (the fused step's padding) must leave the state of the
+    unpadded rows.  Every bf16 call must run the tensor-core kernel and
+    every fp32 call the CUDA-core one, and two bf16 launches at each
+    fused-chunk shape must be bit-identical."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        before = counts()
         for b, s, h, p, g, n, chunk in ((2, 64, 4, 16, 1, 32, 16), (1, 128, 8, 64, 2, 64, 32),
                                         (2, 50, 4, 16, 4, 32, 16)):
             for init in (False, True):
@@ -1136,6 +1153,16 @@ def phase_check_ssd(dev) -> dict:
                                      f"state {es:.3e}")
             log(f"[check-ssd] {arch}_fused_chunk in place {str(dtype)[6:]}: y max err / max "
                 f"|ref| {ey:.3e}, state {es:.3e}")
+            if dtype == torch.bfloat16:
+                st0 = ssd_inputs(dev, dtype, b=8, s=64, init=True, **hk)[1]
+                y1, f1 = ssd.ssd_scan(*args, 128, st0)
+                y2, f2 = ssd.ssd_scan(*args, 128, st0)
+                torch.cuda.synchronize(dev)
+                if not (torch.equal(y1, y2) and torch.equal(f1, f2)):
+                    raise AssertionError(f"ssd_scan {arch}_fused_chunk: two bf16 launches differ")
+                log(f"[check-ssd] {arch}_fused_chunk bf16: two launches bit-identical")
+        args, st = ssd_inputs(dev, dtype, **SSD_PREFILL)
+        check_ssd_case(f"{MAMBA} prefill S{SSD_PREFILL['s']}", dtype, args, st, 128, errs)
         lens = [150, 37, 1, 0]
         args, st = ssd_inputs(dev, dtype, b=4, s=150, init=True, **SSD_HEADS[MAMBA])
         keep = torch.arange(150, device=dev)[None, :, None] < torch.tensor(
@@ -1155,6 +1182,12 @@ def phase_check_ssd(dev) -> dict:
             raise AssertionError(f"ssd_scan masked rows {dtype}: state rel err {worst:.3e}")
         log(f"[check-ssd] dt zeroed past lengths {lens} {str(dtype)[6:]}: final state vs the "
             f"state at each length, max err / max |ref| {worst:.3e}")
+        got = {k: v - before[k] for k, v in counts().items()}
+        mine, other = (("ssd_scan_mma", "ssd_scan_core") if dtype == torch.bfloat16
+                       else ("ssd_scan_core", "ssd_scan_mma"))
+        if not (got["ssd_scan"] > 0 and got[mine] == got["ssd_scan"] and got[other] == 0):
+            raise AssertionError(f"ssd_scan {dtype}: launches by kernel {got}")
+        log(f"[check-ssd] {str(dtype)[6:]}: all {got['ssd_scan']} launches ran {mine}")
     return errs
 
 
@@ -1225,13 +1258,17 @@ class FusedDriver:
 def check_forwards(steps, cfg, what, *, kernels=True) -> None:
     """Every forward launched RMSNorm 2 per Mamba layer (+ 2 per shared
     block occurrence) + 1, the SSD kernel once per Mamba layer when S > 1
-    and never at S = 1, and (hybrid) one flash kernel per occurrence (the
-    decode kernel at S = 1); without kernels, nothing."""
+    and never at S = 1 (the tensor-core kernel in bf16, the CUDA-core one
+    in fp32), and (hybrid) one flash kernel per occurrence (the decode
+    kernel at S = 1); without kernels, nothing."""
     n_shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
     rep = cfg.n_heads // cfg.n_kv_heads
     for s, d in steps:
+        scans = cfg.n_layers if s > 1 else 0
+        mma = cfg.dtype == "bfloat16"
         want = {"rmsnorm": 2 * cfg.n_layers + 2 * n_shared + 1,
-                "ssd_scan": cfg.n_layers if s > 1 else 0, "flash_attention": n_shared,
+                "ssd_scan": scans, "ssd_scan_mma": scans if mma else 0,
+                "ssd_scan_core": 0 if mma else scans, "flash_attention": n_shared,
                 "flash_attention_decode": n_shared if s * rep <= fa._DECODE_ROWS else 0}
         if not kernels:
             want = {k: 0 for k in want}
@@ -1473,20 +1510,23 @@ def ssd_work(args, st, chunk) -> tuple:
 
 def time_ssd(dev, flush, rows, dtype) -> None:
     """The SSD kernel at each model's fused-chunk shape (8 rows x 64 tokens,
-    chunk 128, carried state updated in place as the model does), L2
-    flushed before each call; no single
+    chunk 128, carried state updated in place as the model does) and at the
+    multi-chunk prefill shape, L2 flushed before each call; no single
     PyTorch call computes the scan, so there is no library time."""
-    for arch, hk in SSD_HEADS.items():
-        args, st = ssd_inputs(dev, dtype, b=8, s=64, init=True, **hk)
+    shapes = {f"{arch}_fused_chunk": dict(b=8, s=64, init=True, **hk)
+              for arch, hk in SSD_HEADS.items()}
+    shapes[f"{MAMBA}_prefill"] = SSD_PREFILL
+    for case, shape in shapes.items():
+        args, st = ssd_inputs(dev, dtype, **shape)
         byts, flops = ssd_work(args, st, 128)
         b_ms, b_by = bound(byts, flops, dtype)
-        r = rows[("ssd_scan", f"{arch}_fused_chunk")] = dict(
+        r = rows[("ssd_scan", case)] = dict(
             ms=time_ms(dev, lambda: ssd.ssd_scan(*args, 128, st, out_state=st), flush=flush),
             plain_ms=time_ms(dev, lambda: ssd.ssd_scan_plain(*args, 128, st), iters=10,
                              flush=flush),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops,
         )
-        log(f"[time] ssd_scan {arch} fused chunk bf16 x {tuple(args[0].shape)} B/C "
+        log(f"[time] ssd_scan {case} bf16 x {tuple(args[0].shape)} B/C "
             f"{tuple(args[3].shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library none, bound {b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, "
             f"{flops / 1e9:.3f} GFLOP), kernel/bound {r['ms'] / b_ms:.1f}x")
@@ -1893,6 +1933,7 @@ def main() -> int:
                 "120" if name.endswith("paged") else "41"),
             shape="decode", d128=dec["d128"], d80=dec["d80"], **dec["d64"]))
     t_m, t_z = (times[("ssd_scan", f"{a}_fused_chunk")] for a in (MAMBA, ZAMBA))
+    t_p = times[("ssd_scan", f"{MAMBA}_prefill")]
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:31",
@@ -1907,6 +1948,13 @@ def main() -> int:
             "ms": t_z["ms"], "plain_ms": t_z["plain_ms"], "bound_ms": t_z["bound_ms"],
             "bound_by": t_z["bound_by"], "library_ms": None,
             "max_abs_err": errs[("ssd_scan", f"{ZAMBA}_fused_chunk", torch.bfloat16)],
+        },
+        "mamba2_prefill": {
+            "shape": "2 x 512 tokens, chunk 128, carried state",
+            "ms": t_p["ms"], "plain_ms": t_p["plain_ms"], "bound_ms": t_p["bound_ms"],
+            "bound_by": t_p["bound_by"], "library_ms": None,
+            "max_abs_err": errs[("ssd_scan", f"{MAMBA} prefill S{SSD_PREFILL['s']}",
+                                 torch.bfloat16)],
         },
     })
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -136,7 +136,7 @@ def load() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P,            # x, dt, A, B, C, init_state (or null)
         _P, _P,                            # y, final_state
         _I, _I, _I, _I, _I, _I, _I, _I,    # B, S, H, P, G, N, chunk, dtype
-        _P,                                # stream
+        _P, _P,                            # stream, int* kernel that ran (1 tensor-core)
     ]
     lib.ssd_scan_fwd.restype = _I
     _lib = lib

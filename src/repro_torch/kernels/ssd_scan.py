@@ -14,7 +14,10 @@ init_state itself: the model's cache then updates in place).  Unlike the
 TPU kernel, the CUDA kernel takes an initial state, so it serves the
 model's chunk continuation as well as a fresh prefill; it reads the model
 layout by stride (no transposes) and masks the ragged last chunk itself
-(no padded copies).
+(no padded copies).  bf16 calls run the tensor-core kernel
+(``ssd_scan_mma_kernel``), fp32 calls the CUDA-core one
+(``ssd_scan_kernel``); the C entry reports which ran, and the wrapper
+counts each.
 """
 
 from __future__ import annotations
@@ -24,10 +27,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+import ctypes
+
 from . import _build
 
-# kernel launches since the count was last reset (the CPU path never counts)
+# kernel launches since the count was last reset (the CPU path never counts),
+# in all and by kernel: the bf16 tensor-core kernel, the fp32 CUDA-core one
 launches = 0
+mma_launches = 0
+core_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # state widths the kernel is built for: the reference tests' 32 and 64
@@ -110,7 +118,7 @@ def ssd_scan(
     kernel for a CUDA tensor (raising on any input the kernel does not
     take).  ``out_state`` (fp32 ``[B, H, P, N]``, contiguous, may be
     ``init_state``) receives the final state and is returned."""
-    global launches
+    global launches, mma_launches, core_launches
     if x.device.type == "cpu":
         y, final = ssd_scan_plain(x, dt, A, B, C, chunk, init_state)
         if out_state is None:
@@ -137,6 +145,12 @@ def ssd_scan(
         )
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes 1 <= chunk <= {MAX_CHUNK}, got {chunk}")
+    if x.dtype == torch.bfloat16 and (p % 16 or any(
+            t.data_ptr() % 16 for t in (x, B, C))):
+        raise ValueError(
+            f"ssd_scan bf16 kernel needs P a multiple of 16 (got {p}) and x, B, C "
+            "16-byte aligned"
+        )
     tensors = [x, dt, A, B, C]
     for name, st in (("init_state", init_state), ("out_state", out_state)):
         if st is None:
@@ -158,14 +172,19 @@ def ssd_scan(
         if out_state is None else out_state
     )
     lib = _build.load()
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
             y.data_ptr(), final.data_ptr(), b, s, h, p, g, n, int(chunk),
-            _DTYPES[x.dtype], stream,
+            _DTYPES[x.dtype], stream, ctypes.byref(kernel),
         )
     _build.check(err, "ssd_scan_fwd")
     launches += 1
+    if kernel.value == 1:
+        mma_launches += 1
+    else:
+        core_launches += 1
     return y, final

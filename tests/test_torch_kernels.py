@@ -15,7 +15,11 @@ the split-KV decode kernel's (fixed splits, per-warp online softmax, the
 (m, l, O) merges), against the plain version on the CPU; the SSD scan on
 the card as the
 reference holds its Pallas kernel: max error over max |ref| under 1e-5 in
-fp32 and 4e-2 in bf16, for y and the final state.
+fp32 and 4e-2 in bf16, for y and the final state.  A plain model of the
+bf16 SSD kernel's rounding (scores and W in bf16, the state as a hi + lo
+bf16 pair) is held to the plain scan and the reference's ``ssd_chunked``
+within that 4e-2 on the CPU, and the kernel to the model within 4e-3 on
+the card.
 
 The JAX reference is imported inside the tests that compare against it, so
 the card tests run where only the port is installed:
@@ -912,6 +916,152 @@ def test_ssd_scan_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device)
         ssd.ssd_scan(x, dt, a, bm, cm, 16, st.to(torch.bfloat16))
     with pytest.raises(TypeError, match="out_state"):
         ssd.ssd_scan(x, dt, a, bm, cm, 16, st, out_state=st[:, :2].contiguous())
+
+
+# ------------------------------------ the bf16 SSD tensor-core kernel's model
+_LOG2E_F32 = torch.tensor(_LOG2E, dtype=torch.float32)
+# kernel vs model on the card: max err over max |ref|.  Both round the same
+# scores and W entries to bf16; an entry whose fp32 value lies within a few
+# ulps of a rounding tie (cumsum and mma sum in another order, ex2.approx)
+# rounds to the neighbouring bf16, one 2^-8 step of one term of a row.
+_SSD_MODEL_TOL = 4e-3
+# (b, s, h, p, g, n, chunk, init): both models' fused chunk (8 × 64, carried
+# state), mamba2's heads over two chunks (S 200), a reference shape at G 2
+_SSD_MODEL_CASES = {
+    "mamba2_fused_chunk": (8, 64, 24, 64, 1, 128, 128, True),
+    "zamba2_fused_chunk": (8, 64, 80, 64, 1, 64, 128, True),
+    "mamba2_S200": (2, 200, 24, 64, 1, 128, 128, True),
+    "reference_G2": (1, 128, 8, 64, 2, 64, 32, False),
+}
+
+
+def _ssd_tile_model(x, dt, A, B, C, chunk, init_state=None):
+    """The arithmetic of the bf16 SSD tensor-core kernel in plain PyTorch,
+    chunk by chunk: cum = cumsum(dt·A·log2 e) in fp32; y = (C · (hi +
+    lo)ᵀ) 2^{cum_i} with the fp32 state split into bf16 hi = bf16(s) and lo
+    = bf16(s − hi); scores C·Bᵀ ⊙ 2^{cum_i − cum_j} ⊙ dt_j (zero above the
+    diagonal) rounded to bf16, times x; W = bf16(B ⊙ dt·2^{cum_last − cum});
+    state = state·2^{cum_last} + xᵀW in fp32.  B, C and x are bf16 already,
+    so every other product is exact in its inputs."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    bf = torch.bfloat16
+    xf = x.float()
+    Bh = B.float().repeat_interleave(rep, dim=2)
+    Ch = C.float().repeat_interleave(rep, dim=2)
+    st = (init_state.float().clone() if init_state is not None
+          else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    a_log2 = A.float() * _LOG2E_F32.to(x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        xc, dtc = xf[:, c0:c0 + lc], dt[:, c0:c0 + lc].float()
+        Bc, Cc = Bh[:, c0:c0 + lc], Ch[:, c0:c0 + lc]
+        cum = torch.cumsum(dtc * a_log2, dim=1)                      # [b, L, h]
+        hi = st.to(bf).float()
+        lo = (st - hi).to(bf).float()
+        y = (torch.einsum("blhn,bhpn->blhp", Cc, hi) + torch.einsum("blhn,bhpn->blhp", Cc, lo)
+             ) * torch.exp2(cum)[..., None]
+        scores = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+        ch = cum.permute(0, 2, 1)                                    # [b, h, L]
+        vis = torch.tril(torch.ones((lc, lc), dtype=torch.bool, device=x.device))
+        diff = torch.where(vis, ch[..., :, None] - ch[..., None, :], torch.zeros(()))
+        decay = torch.where(vis, torch.exp2(diff), torch.zeros(()))
+        sd = (scores * decay * dtc.permute(0, 2, 1)[:, :, None, :]).to(bf).float()
+        ys.append((y + torch.einsum("bhij,bjhp->bihp", sd, xc)).to(x.dtype))
+        w = dtc * torch.exp2(cum[:, -1:] - cum)                     # [b, L, h]
+        W = (Bc * w[..., None]).to(bf).float()
+        st = st * torch.exp2(cum[:, -1])[..., None, None] + torch.einsum("blhp,blhn->bhpn", xc, W)
+    return torch.cat(ys, dim=1), st
+
+
+def _ssd_model_inputs(rng, b, s, h, p, g, n, init):
+    """The reference kernel test's distributions from numpy: x, B, C in
+    bf16, dt and A fp32, an fp32 initial state when ``init``."""
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).to(bf)
+    dt = torch.from_numpy((np.abs(rng.standard_normal((b, s, h))) * 0.1 + 0.01).astype(np.float32))
+    a = torch.from_numpy((-(np.abs(rng.standard_normal(h)) + 0.5)).astype(np.float32))
+    bm = torch.from_numpy(rng.standard_normal((b, s, g, n)).astype(np.float32)).to(bf)
+    cm = torch.from_numpy(rng.standard_normal((b, s, g, n)).astype(np.float32)).to(bf)
+    st = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(np.float32)) if init else None
+    return [x, dt, a, bm, cm], st
+
+
+@pytest.mark.parametrize("case", list(_SSD_MODEL_CASES))
+def test_ssd_tile_model_within_bf16_tolerance(case):
+    """The rounding of the bf16 SSD kernel (scores and W in bf16, the state
+    as a hi + lo bf16 pair) stays within the bf16 tolerance (4e-2 of max
+    |ref|, y and final state) of the plain version, which is fp32 from end
+    to end, and of the reference's jnp ``ssd_chunked`` on the same values."""
+    from repro.models import ssm as j_ssm
+
+    jnp = _jax()
+    b, s, h, p, g, n, chunk, init = _SSD_MODEL_CASES[case]
+    args, st = _ssd_model_inputs(np.random.default_rng(0), b, s, h, p, g, n, init)
+    y, fin = _ssd_tile_model(*args, chunk, st)
+    yr, fr = ssd.ssd_scan_plain(*args, chunk, st)
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    assert _rel(y, yr) < 4e-2 and _rel(fin, fr) < 4e-2, (_rel(y, yr), _rel(fin, fr))
+    assert not torch.equal(y, yr) and not torch.equal(fin, fr)   # the rounding is modelled
+    jargs = [jnp.asarray(t.float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16
+                         else jnp.float32) for t in args]
+    yj, fj = j_ssm.ssd_chunked(*jargs, chunk,
+                               init_state=None if st is None else jnp.asarray(st.numpy()))
+    yj = torch.from_numpy(np.array(yj, np.float32))
+    fj = torch.from_numpy(np.array(fj, np.float32))
+    assert _rel(y, yj) < 4e-2 and _rel(fin, fj) < 4e-2, (_rel(y, yj), _rel(fin, fj))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_SSD_MODEL_CASES) + [
+    "reference_P16_G4_S50", "zamba2_S17", "mamba2_S1", "mamba2_chunk7"])
+def test_ssd_scan_mma_kernel_matches_its_model_on_card(cuda_device, case):
+    """The bf16 tensor-core kernel against ``_ssd_tile_model`` on the same
+    inputs, within ``_SSD_MODEL_TOL``, and two launches bit-identical; it
+    must have run the tensor-core kernel."""
+    shape = _SSD_MODEL_CASES.get(case) or {
+        "reference_P16_G4_S50": (2, 50, 4, 16, 4, 32, 16, True),
+        "zamba2_S17": (2, 17, 80, 64, 1, 64, 128, True),
+        "mamba2_S1": (2, 1, 24, 64, 1, 128, 128, True),
+        "mamba2_chunk7": (1, 100, 24, 64, 1, 128, 7, True),
+    }[case]
+    b, s, h, p, g, n, chunk, init = shape
+    args, st = _ssd_model_inputs(np.random.default_rng(0), b, s, h, p, g, n, init)
+    args = [t.to(cuda_device) for t in args]
+    st = None if st is None else st.to(cuda_device)
+    before = ssd.mma_launches
+    y, fin = ssd.ssd_scan(*args, chunk, st)
+    y2, fin2 = ssd.ssd_scan(*args, chunk, st)
+    ym, fm = _ssd_tile_model(*args, chunk, st)
+    torch.cuda.synchronize(cuda_device)
+    assert ssd.mma_launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    assert _rel(y, ym) < _SSD_MODEL_TOL and _rel(fin, fm) < _SSD_MODEL_TOL, (
+        _rel(y, ym), _rel(fin, fm))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_runs_each_dtype_on_its_kernel_on_card(cuda_device):
+    """bf16 calls run the tensor-core kernel, fp32 calls the CUDA-core one."""
+    for dtype, attr in ((torch.bfloat16, "mma_launches"), (torch.float32, "core_launches")):
+        args, st = _card_ssd_inputs(cuda_device, dtype, b=2, s=64, h=4, p=64, g=1, n=64,
+                                    init=True)
+        before = (ssd.launches, ssd.mma_launches, ssd.core_launches)
+        ssd.ssd_scan(*args, 128, st)
+        after = (ssd.launches, ssd.mma_launches, ssd.core_launches)
+        assert after[0] == before[0] + 1
+        assert getattr(ssd, attr) == before[1 if attr == "mma_launches" else 2] + 1
+        assert sum(after[1:]) == sum(before[1:]) + 1
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bf16_wrapper_raises_on_p_not_a_multiple_of_16(cuda_device):
+    args, st = _card_ssd_inputs(cuda_device, torch.bfloat16, b=1, s=8, h=4, p=24, g=1, n=32,
+                                init=True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd.ssd_scan(*args, 16, st)
 
 
 # ------------------------------------------------------ grouped GEMM (-m gpu)

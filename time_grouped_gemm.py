@@ -1,7 +1,8 @@
 """Time one checkout's grouped-GEMM kernel at qwen2-moe's four main-path
-shapes, so that two versions can be compared on one card in one call.
+shapes, or its SSD-scan kernel, so that two versions can be compared on
+one card in one call.
 
-    python3 time_grouped_gemm.py [--tree DIR] [--label NAME]
+    python3 time_grouped_gemm.py [--tree DIR] [--label NAME] [--kernel grouped_gemm|ssd_scan]
 
 ``--tree`` is the root of a checkout of this repository (default: this
 one); its ``src/repro_torch`` kernel is built and timed with the helpers
@@ -17,6 +18,14 @@ card (``nvidia-smi`` name and power limit) and one JSON line of results.
 Run the versions in turns (parent, change, change, parent): each process
 builds its tree's kernels once.  Needs one CUDA card; without one it exits
 non-zero.
+
+``--kernel ssd_scan`` times the SSD chunked scan instead, bf16, L2 flushed,
+with the tree's own ``ssd_inputs``, ``ssd_work`` and ``time_ms``: each
+model's fused chunk (8 rows × 64 tokens, chunk 128, the state carried and
+updated in place: mamba2-130m H 24 × P 64 × N 128, zamba2-2.7b H 80 ×
+P 64 × N 64) and mamba2's multi-chunk prefill (2 rows × 512 tokens, four
+chunks, a carried state), each checked against the plain version first,
+beside its bound and a read of the same bytes.
 """
 
 from __future__ import annotations
@@ -44,10 +53,41 @@ def host_us(dev, fn, iters=200) -> float:
     return t / iters * 1e6
 
 
+def time_ssd(cs, dev, flush) -> dict:
+    """The tree's SSD-scan kernel at the fused-chunk and prefill shapes."""
+    shapes = {f"{arch}_fused_chunk": dict(b=8, s=64, init=True, **hk)
+              for arch, hk in cs.SSD_HEADS.items()}
+    shapes[f"{cs.MAMBA}_prefill"] = dict(b=2, s=512, init=True, **cs.SSD_HEADS[cs.MAMBA])
+    rows = {}
+    for case, shape in shapes.items():
+        inp, st = cs.ssd_inputs(dev, torch.bfloat16, **shape)
+        byts, flops = cs.ssd_work(inp, st, 128)
+        b_ms, b_by = cs.bound(byts, flops, torch.bfloat16)
+        y, fin = cs.ssd.ssd_scan(*inp, 128, st)
+        yr, fr = cs.ssd.ssd_scan_plain(*inp, 128, st)
+        err = max(cs.rel_err(y, yr), cs.rel_err(fin, fr))
+        if not err < cs.SSD_TOL[torch.bfloat16]:
+            sys.exit(f"time_grouped_gemm: ssd_scan {case} is wrong: {err:.3e}")
+        run = lambda: cs.ssd.ssd_scan(*inp, 128, st, out_state=st)  # noqa: E731
+        same_bytes = torch.ones(byts // 2, dtype=torch.bfloat16, device=dev)
+        rows[case] = r = dict(
+            ms=cs.time_ms(dev, run, flush=flush),
+            read_ms=cs.time_ms(dev, lambda: same_bytes.sum(), flush=flush),
+            bound_ms=b_ms, bound_by=b_by, rel_err=err, host_us=host_us(dev, run),
+        )
+        print(f"[time] ssd_scan {case}: kernel {r['ms']:.4f} ms, a read of the same "
+              f"{byts / 1e6:.1f} MB {r['read_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"kernel/bound {r['ms'] / b_ms:.2f}x; max err / max |ref| {err:.3e}; host a call "
+              f"{r['host_us']:.1f} us", flush=True)
+        del inp, st, same_bytes
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kernel", choices=("grouped_gemm", "ssd_scan"), default="grouped_gemm")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_grouped_gemm: no CUDA device")
@@ -64,6 +104,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    if args.kernel == "ssd_scan":
+        rows = time_ssd(cs, dev, flush)
+        print(json.dumps({"tree": args.label or str(tree), "kernel": args.kernel,
+                          "build_s": build_s, "rows": rows}))
+        return 0
     rows = {}
     for proj, (k, n) in cs.GG_SHAPES.items():
         for routing, tokens in cs.GG_ROUTING.items():
