@@ -20,9 +20,15 @@ Phases (any failure exits non-zero; nothing is caught):
    at each model's heads, at depths 0, split-1, split, split+1 and 2047
    and an idle row, plain and with window 64 + softcap 50, dense and paged
    (P 16, 48, 64): paged bit-equal to dense on the gathered view (trash
-   page garbage or zeroed) and two launches bit-identical; the grouped GEMM
+   page garbage or zeroed) and two launches bit-identical; the flash
+   kernels at qwen3-14b's heads (D 128, GQA 40 / 8); the grouped GEMM
    at qwen2-moe's gate/up and down shapes under decode and chunk routing,
-   and on edge groupings;
+   and on edge groupings; RMSNorm in fp32 and bf16 at every main-path
+   shape of ``RMS_SHAPES`` (``time_grouped_gemm.py``), at row counts that
+   leave a block's last row groups idle and at one row, all on the rows
+   kernel, and on the generic kernel at widths no instance covers and at
+   a misaligned x or w (which kernel ran is counted; two launches must be
+   bit-identical);
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
    ``repro_torch.launch.serve.main`` with its defaults, then through
    ``ServingEngine`` with 16 requests of 100–600 prompt tokens, 8 slots,
@@ -52,7 +58,13 @@ Phases (any failure exits non-zero; nothing is caught):
    requests three times and a profiler trace of 16 of its steps, one paged
    engine on the shared-prefix requests three times beside a dense one.
    Every forward must launch the grouped-GEMM kernel 3 × 24 times, and the
-   head-dim-128 flash kernel must have launched;
+   head-dim-128 flash kernel must have launched. Then qwen3-14b (40
+   layers, d_model 5120, per-head q/k norms, GQA 40 / 8 at D 128, ~29.5 GB
+   bf16): ``[parity-qwen3]`` as phase 5, ``[serve-qwen3]`` and
+   ``[trace-qwen3]`` as phase 4. In every serve and parity run each
+   forward must launch ``norms_per_forward(cfg)`` RMSNorms (2 a block,
+   + 2 for q/k norms, + 2 for post-norms, 2 a Mamba layer, + 1; qwen3-14b
+   161), every one on the rows kernel;
 8. SSM and hybrid: ``[check-ssd]`` holds the SSD chunked-scan kernel to
    its plain version (fp32 and bf16 within 1e-5 and 4e-2 of max |ref|,
    for y and the final state) at the reference test's shapes, both
@@ -64,8 +76,7 @@ Phases (any failure exits non-zero; nothing is caught):
    every fp32 call the CUDA-core one (counted by kernel), and two bf16
    launches at each fused-chunk shape must be bit-identical;
    phase 3 also holds both flash kernels at zamba2's head dim 80 (32
-   heads, no GQA) and RMSNorm at the SSM path's widths 768, 1536, 2560
-   and 5120 (512 and 8 rows).
+   heads, no GQA).
    ``[serve-ssm]``: full-width mamba2-130m and zamba2-2.7b (bf16, random
    weights from a seed) through ``build_model(cfg).fused_step``, driven
    like ``tests/test_fused_step.py::_fused_generate`` (8 requests of
@@ -95,7 +106,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``torch._grouped_mm`` where this PyTorch has it (else a per-expert
    ``torch.matmul`` loop, labelled so); the SSD kernel at both models'
    fused-chunk shapes and at mamba2's multi-chunk prefill (no single
-   PyTorch call computes the scan).
+   PyTorch call computes the scan); RMSNorm back to back at every shape of
+   ``RMS_SHAPES``, beside ``F.rms_norm``, a copy and a read of the same
+   bytes and an empty kernel's time (the floor), naming the instance.
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -125,6 +138,7 @@ SRC = ROOT / "src"
 if not (SRC / "repro_torch").is_dir():
     sys.exit(f"chip_smoke: {SRC / 'repro_torch'} not found (run from a checkout of the repo)")
 sys.path.insert(0, str(SRC))
+sys.path.insert(0, str(ROOT))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.devices import h100_cluster  # noqa: E402
@@ -138,6 +152,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
+from time_grouped_gemm import RMS_SHAPES, time_rms  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / fp32 non-tensor
@@ -163,6 +178,8 @@ def reset_counts() -> None:
     fa.decode_launches = 0
     fa.paged_decode_launches = 0
     rn.launches = 0
+    rn.rows_launches = 0
+    rn.generic_launches = 0
     gg.launches = 0
     ssd.launches = 0
     ssd.mma_launches = 0
@@ -173,21 +190,27 @@ def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
             "flash_attention_decode": fa.decode_launches,
             "flash_attention_paged_decode": fa.paged_decode_launches,
-            "rmsnorm": rn.launches, "grouped_gemm": gg.launches, "ssd_scan": ssd.launches,
+            "rmsnorm": rn.launches, "rmsnorm_rows": rn.rows_launches,
+            "rmsnorm_generic": rn.generic_launches, "grouped_gemm": gg.launches,
+            "ssd_scan": ssd.launches,
             "ssd_scan_mma": ssd.mma_launches, "ssd_scan_core": ssd.core_launches}
 
 
 def require(got: dict, names, what: str) -> None:
     """Fail unless every kernel in ``names`` launched in the run ``got``
-    counts."""
+    counts, and every RMSNorm ran on the rows kernel."""
     if not all(got[n] for n in names):
         raise AssertionError(f"{what}: a kernel of the path never launched: {got}")
+    if got["rmsnorm_generic"] or got["rmsnorm_rows"] != got["rmsnorm"]:
+        raise AssertionError(f"{what}: a norm ran on the generic RMSNorm kernel: {got}")
 
 
 LLAMA = "llama3.2-1b"
 MOE = "qwen2-moe-a2.7b"
 MAMBA = "mamba2-130m"
 ZAMBA = "zamba2-2.7b"
+QWEN3 = "qwen3-14b"
+TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3"}     # phase tags: [serve], [serve-moe], ...
 # the kernels each path must launch: dense or paged KV (decode steps on the
 # split-KV decode kernel), plus the grouped GEMM for an MoE model
 DENSE_PATH = ("flash_attention", "flash_attention_decode", "rmsnorm")
@@ -199,16 +222,30 @@ def path(arch: str, paged: bool) -> tuple:
     return kernels + (("grouped_gemm",) if arch == MOE else ())
 
 
+def norms_per_forward(cfg) -> int:
+    """RMSNorm launches of one forward: 2 an attention block (+ 2 for the
+    per-head q/k norms, + 2 for post-norms), 2 a Mamba layer, plus the
+    final norm; a hybrid model's shared attention block counts at each of
+    its occurrences."""
+    attn = 2 + 2 * cfg.qk_norm + 2 * cfg.post_block_norm
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        return 2 * cfg.n_layers + attn * (cfg.n_layers // cfg.shared_attn_every) + 1
+    return attn * cfg.n_layers + 1
+
+
 def require_per_forward(got: dict, cfg, what: str) -> None:
-    """An MoE run must launch the grouped GEMM 3 times a layer in every
-    forward: each forward launches 2 RMSNorms a layer plus the final one,
-    so the counts must be whole multiples of one forward's."""
-    if not cfg.n_experts:
-        return
-    norms = 2 * cfg.n_layers + 1
+    """Every forward launches ``norms_per_forward(cfg)`` RMSNorms, all on
+    the rows kernel, so the run's count must be a whole multiple of one
+    forward's; an MoE run must also launch the grouped GEMM 3 times a
+    layer in every forward."""
+    norms = norms_per_forward(cfg)
     fwd = got["rmsnorm"] // norms
-    if not (fwd > 0 and got["rmsnorm"] == fwd * norms
-            and got["grouped_gemm"] == 3 * cfg.n_layers * fwd):
+    if not (fwd > 0 and got["rmsnorm"] == fwd * norms == got["rmsnorm_rows"]):
+        raise AssertionError(f"{what}: RMSNorm launches are not {norms} a forward, all on the "
+                             f"rows kernel: {got}")
+    if cfg.n_experts and got["grouped_gemm"] != 3 * cfg.n_layers * fwd:
         raise AssertionError(f"{what}: grouped GEMM launches are not 3 x {cfg.n_layers} per "
                              f"forward: {got}")
 
@@ -239,7 +276,7 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
 
 # attention heads (query, KV) and head dim of each served model
 HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128),
-         ZAMBA: dict(h=32, kv=32, d=80)}
+         ZAMBA: dict(h=32, kv=32, d=80), QWEN3: dict(h=40, kv=8, d=128)}
 
 
 def flash_cases(dev, dtype, arch=LLAMA):
@@ -475,19 +512,6 @@ def phase_check(dev) -> dict:
             log(f"[check] flash_attention_paged {case} {str(dtype)[6:]}: max abs err {err:.3e}; "
                 f"vs the dense kernel on the gathered view: max abs diff "
                 f"{(out.float() - dense.float()).abs().max().item():.3e}")
-        x, w = rms_inputs(dev, dtype)
-        err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
-        errs[("rmsnorm", "rows512", dtype)] = err
-        log(f"[check] rmsnorm [512, 2048] {str(dtype)[6:]}: max abs err {err:.3e}")
-        # the SSM path's widths (another block size each): mamba2-130m's
-        # d_model 768 and gated-norm 1536, zamba2-2.7b's 2560 and 5120, at a
-        # fused chunk's 512 rows and a decode step's 8
-        for d in (768, 1536, 2560, 5120):
-            for nrows in (512, 8):
-                x, w = rms_inputs(dev, dtype, rows=nrows, d=d)
-                err = within(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
-                errs[("rmsnorm", f"rows{nrows}_d{d}", dtype)] = err
-                log(f"[check] rmsnorm [{nrows}, {d}] {str(dtype)[6:]}: max abs err {err:.3e}")
         # qwen2-moe's attention: head dim 128, no GQA
         for case, (inp, extra) in flash_cases(dev, dtype, MOE).items():
             out = run_flash(fa.flash_attention, inp, extra)
@@ -505,6 +529,17 @@ def phase_check(dev) -> dict:
             log(f"[check] flash_attention_paged d128 {case} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}; vs the dense kernel on the gathered view: max abs diff "
                 f"{(out.float() - dense.float()).abs().max().item():.3e}")
+        # qwen3-14b's attention: head dim 128, GQA 40 / 8 (5 query heads a KV
+        # head: decode rows on the decode kernel's 16-row instance)
+        for case, (inp, extra) in flash_cases(dev, dtype, QWEN3).items():
+            out = run_flash(fa.flash_attention, inp, extra)
+            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash d128g5 {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention", "d128g5_" + case, dtype)] = err
+            log(f"[check] flash_attention d128 GQA 40/8 {case} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}")
         # zamba2-2.7b's shared attention: head dim 80, no GQA (decode rows on
         # the split-KV decode kernel); every output dim held to the plain
         # version
@@ -548,6 +583,55 @@ def phase_check(dev) -> dict:
                 f"{tuple(inp['w'].shape)}: {int((gs > 0).sum())} experts with rows, largest "
                 f"group {int(gs.max())}: max abs err {err:.3e}")
             del out
+    return errs
+
+
+def rms_case(x, w, what, errs, key, *, kernel) -> None:
+    """One RMSNorm check: the kernel ``kernel`` ("rows" or "generic") ran
+    once per call, within tolerance of the plain version, and two launches
+    are bit-identical."""
+    before = (rn.rows_launches, rn.generic_launches)
+    out, again = rn.rmsnorm(x, w), rn.rmsnorm(x, w)
+    ref = rn.rmsnorm_plain(x, w)
+    torch.cuda.synchronize(x.device)
+    ran = (rn.rows_launches - before[0], rn.generic_launches - before[1])
+    if ran != ((2, 0) if kernel == "rows" else (0, 2)):
+        raise AssertionError(f"rmsnorm {what}: expected the {kernel} kernel, launches {ran}")
+    err = within(out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError(f"rmsnorm {what}: two launches differ")
+    errs[key] = err
+    log(f"[check] rmsnorm {what} {str(x.dtype)[6:]} on {kernel}: max abs err {err:.3e}, two "
+        "launches bit-identical")
+
+
+def phase_check_rmsnorm(dev) -> dict:
+    """RMSNorm against its plain version, fp32 and bf16: every main-path
+    shape of ``RMS_SHAPES`` on the rows kernel (its instance), row counts
+    that leave a block's last row groups idle (517, 20483) and one row;
+    the generic kernel at widths no instance covers (100: element loads;
+    1000: 16-byte loads) and at a misaligned x or w."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for nrows, d, what in RMS_SHAPES:
+            x, w = rms_inputs(dev, dtype, rows=nrows, d=d)
+            rms_case(x, w, f"[{nrows}, {d}] ({what}; {rn.plan(d, dtype).instance})", errs,
+                     ("rmsnorm", f"{nrows}x{d}", dtype), kernel="rows")
+        for nrows, d in ((517, 2048), (20483, 128), (1, 5120), (1, 128), (3, 4608)):
+            x, w = rms_inputs(dev, dtype, rows=nrows, d=d)
+            rms_case(x, w, f"[{nrows}, {d}]", errs, ("rmsnorm", f"{nrows}x{d}", dtype),
+                     kernel="rows")
+        for nrows, d in ((8, 100), (512, 1000), (3, 1000)):
+            x, w = rms_inputs(dev, dtype, rows=nrows, d=d)
+            rms_case(x, w, f"[{nrows}, {d}]", errs, ("rmsnorm", f"{nrows}x{d}", dtype),
+                     kernel="generic")
+        x, w = rms_inputs(dev, dtype, rows=65, d=2048)
+        x_off = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view_as(x).copy_(x)
+        w_off = torch.empty(w.numel() + 1, device=dev)[1:].copy_(w)
+        rms_case(x_off, w, "[65, 2048] x off 16-byte alignment", errs,
+                 ("rmsnorm", "65x2048_x_misaligned", dtype), kernel="generic")
+        rms_case(x, w_off, "[65, 2048] w off 16-byte alignment", errs,
+                 ("rmsnorm", "65x2048_w_misaligned", dtype), kernel="generic")
     return errs
 
 
@@ -611,7 +695,7 @@ def phase_check_decode(dev) -> dict:
     it zeroed; every case launched twice must give the same bits."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for arch, tag in ((LLAMA, "d64"), (MOE, "d128"), (ZAMBA, "d80")):
+        for arch, tag in ((LLAMA, "d64"), (MOE, "d128"), (ZAMBA, "d80"), (QWEN3, "d128g5")):
             hk = HEADS[arch]
             split = fa._decode_split(dtype, hk["d"])
             depths, lens = [0, split - 1, split, split + 1, 2047, 1000], [1, 1, 1, 1, 1, 0]
@@ -719,7 +803,7 @@ ENGINE_REPEATS = 3
 
 
 def phase_serve(dev, arch=LLAMA) -> dict:
-    tag = "[serve]" if arch == LLAMA else "[serve-moe]"
+    tag = f"[serve{TAGS[arch]}]"
     want = path(arch, paged=False)
     cfg = full_cfg(arch)
     log(f"{tag} host: {host_line()}")
@@ -785,7 +869,7 @@ def phase_serve(dev, arch=LLAMA) -> dict:
     log(f"{tag} launches per fused forward: {per_fwd}")
     require_per_forward(per_fwd, cfg, "fused forward")
     del logits
-    phase_trace(eng, cfg, dev, tag="[trace]" if arch == LLAMA else "[trace-moe]")
+    phase_trace(eng, cfg, dev, tag=f"[trace{TAGS[arch]}]")
     del eng, params
     free_card()
     return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s}
@@ -862,6 +946,10 @@ def report_trace(prof, wall, tag, what) -> None:
     if gemm:
         log(f"{tag}   grouped GEMM: " + "; ".join(f"{key.split('::', 1)[-1][:62]} {dt / 1e3:.3f} "
                                                   f"ms x{n}" for dt, key, n in gemm))
+    norms = sorted(r for r in rows if "rmsnorm" in r[1])[::-1]
+    if norms:
+        log(f"{tag}   rmsnorm: " + "; ".join(f"{key.split('::', 1)[-1][:62]} {dt / 1e3:.3f} ms "
+                                             f"x{n}" for dt, key, n in norms))
     copies = sorted(r for r in rows if "Memcpy" in r[1] or "direct_copy" in r[1])[::-1]
     if copies:
         log(f"{tag}   copies: " + "; ".join(f"{key[:40]} {dt / 1e3:.3f} ms x{n}"
@@ -869,7 +957,7 @@ def report_trace(prof, wall, tag, what) -> None:
 
 
 def phase_parity(dev, arch=LLAMA) -> None:
-    tag = "[parity]" if arch == LLAMA else "[parity-moe]"
+    tag = f"[parity{TAGS[arch]}]"
     # 2 full-width layers in fp32: kernels against plain versions, 32 greedy steps
     tokens = {}
     for impl in ("pallas", "naive"):
@@ -1256,18 +1344,19 @@ class FusedDriver:
 
 
 def check_forwards(steps, cfg, what, *, kernels=True) -> None:
-    """Every forward launched RMSNorm 2 per Mamba layer (+ 2 per shared
-    block occurrence) + 1, the SSD kernel once per Mamba layer when S > 1
+    """Every forward launched ``norms_per_forward(cfg)`` RMSNorms, all on
+    the rows kernel, the SSD kernel once per Mamba layer when S > 1
     and never at S = 1 (the tensor-core kernel in bf16, the CUDA-core one
     in fp32), and (hybrid) one flash kernel per occurrence (the decode
     kernel at S = 1); without kernels, nothing."""
     n_shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
     rep = cfg.n_heads // cfg.n_kv_heads
+    norms = norms_per_forward(cfg)
     for s, d in steps:
         scans = cfg.n_layers if s > 1 else 0
         mma = cfg.dtype == "bfloat16"
-        want = {"rmsnorm": 2 * cfg.n_layers + 2 * n_shared + 1,
-                "ssd_scan": scans, "ssd_scan_mma": scans if mma else 0,
+        want = {"rmsnorm": norms, "rmsnorm_rows": norms,
+                "rmsnorm_generic": 0, "ssd_scan": scans, "ssd_scan_mma": scans if mma else 0,
                 "ssd_scan_core": 0 if mma else scans, "flash_attention": n_shared,
                 "flash_attention_decode": n_shared if s * rep <= fa._DECODE_ROWS else 0}
         if not kernels:
@@ -1584,10 +1673,6 @@ def host_us(dev, fn, *, iters=200) -> float:
     return t / iters * 1e6
 
 
-def time_opt(dev, fn, **kw):
-    return None if fn is None else time_ms(dev, fn, **kw)
-
-
 def flash_work(inp, extra) -> tuple:
     """Bytes the function must move and flops it must do for THESE inputs:
     each visible key of each valid row, K/V read up to each row's last
@@ -1785,21 +1870,6 @@ def phase_time(dev) -> dict:
     dtype = torch.bfloat16
     time_flash(dev, flush, rows, LLAMA, "", dtype)
     time_paged(dev, flush, rows, LLAMA, "", dtype)
-    for nrows in (512, 8):
-        x, w = rms_inputs(dev, dtype, rows=nrows)
-        w1 = (1.0 + w).to(dtype)
-        byts = 2 * x.numel() * x.element_size() + w.numel() * 4
-        b_ms, b_by = bound(byts, 4 * x.numel(), torch.float32)
-        # no flush: on the main path x was written by the op just before
-        rows[("rmsnorm", f"rows{nrows}")] = dict(
-            ms=time_ms(dev, lambda: rn.rmsnorm(x, w)),
-            plain_ms=time_ms(dev, lambda: rn.rmsnorm_plain(x, w)),
-            library_ms=time_opt(
-                dev, (lambda: F.rms_norm(x, (x.shape[-1],), w1, 1e-6))
-                if hasattr(F, "rms_norm") else None,
-            ),
-            bound_ms=b_ms, bound_by=b_by,
-        )
     time_flash(dev, flush, rows, MOE, "d128_", dtype)
     time_paged(dev, flush, rows, MOE, "d128_", dtype)
     time_flash(dev, flush, rows, ZAMBA, "d80_", dtype)
@@ -1817,6 +1887,9 @@ def phase_time(dev) -> dict:
     time_gg(dev, flush, rows, dtype)
     time_ssd(dev, flush, rows, dtype)
     del flush
+    # RMSNorm back to back (no flush: on the main path x was written by the
+    # op just before), with time_grouped_gemm.py --kernel rmsnorm's function
+    rows.update({("rmsnorm", case): r for case, r in time_rms(sys.modules[__name__], dev).items()})
     return rows
 
 
@@ -1852,6 +1925,7 @@ def main() -> int:
     errs.update(phase_check_gg_split(dev))
     errs.update(phase_check_decode(dev))
     errs.update(phase_check_ssd(dev))
+    errs.update(phase_check_rmsnorm(dev))
     served = phase_serve(dev)
     phase_parity(dev)
     phase_parity_paged(dev)
@@ -1859,6 +1933,8 @@ def main() -> int:
     phase_parity(dev, MOE)
     served_moe = phase_serve(dev, MOE)
     served_moe_paged = phase_serve_paged(dev, MOE)
+    phase_parity(dev, QWEN3)
+    served_qwen3 = phase_serve(dev, QWEN3)
     served_mamba = phase_serve_ssm(dev, MAMBA)
     served_zamba = phase_serve_ssm(dev, ZAMBA)
     parity_ssm = phase_parity_ssm(dev)
@@ -1877,7 +1953,7 @@ def main() -> int:
         ("flash_attention_paged", "fused_chunk", "fused_chunk_P64", served_paged,
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:120"),
-        ("rmsnorm", "rows512", "rows512", served, "src/repro_torch/csrc/rmsnorm.cu",
+        ("rmsnorm", "512x2048", "512x2048", served, "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm/kernel.py:22"),
         ("grouped_gemm", "gate_up_chunk", "gate_up_chunk", served_moe,
          "src/repro_torch/csrc/grouped_gemm.cu",
@@ -1923,6 +1999,17 @@ def main() -> int:
                            "host_us", "library_host_us")}
                            for c in ("gate_up_decode", "gate_up_chunk", "down_decode",
                                      "down_chunk")})
+        if name == "rmsnorm":
+            # every timed shape (its instance, floor and yardsticks) and each
+            # served configuration's launches: the CLI run (the SSM models:
+            # the first of their three runs) and one fused forward
+            row["shapes"] = {c: dict(times[(name, c)], max_abs_err=errs[(name, c, torch.bfloat16)])
+                             for _, c in sorted(k for k in times if k[0] == name)}
+            row["launches_by_config"] = {
+                arch: {"launches": run["cli"][name], "launches_per_forward": run["per_forward"][name],
+                       "rows_kernel": run["cli"]["rmsnorm_rows"]}
+                for arch, run in ((LLAMA, served), (MOE, served_moe), (QWEN3, served_qwen3),
+                                  (MAMBA, served_mamba), (ZAMBA, served_zamba))}
         kernels.append(row)
     # the split-KV decode kernel (and its merge) as kernels of their own:
     # D 64 at the top, D 128 and D 80 nested, as the chunk rows

@@ -103,7 +103,11 @@ def load() -> ctypes.CDLL:
         _log = _compile(so)
         log_path.write_text(_log)
     lib = ctypes.CDLL(str(so))
-    lib.rmsnorm_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
+    lib.rmsnorm_fwd.argtypes = [
+        _P, _P, _P, _I, _I, _I, _F,        # x, w, out, rows, d, dtype, eps
+        _I, _I, _I, _I,                    # lanes (0: generic kernel), packs, groups, grid
+        _P,                                # stream
+    ]
     lib.rmsnorm_fwd.restype = _I
     lib.flash_attention_fwd.argtypes = [
         _P, _P, _P, _P,                    # q, k, v, out

@@ -26,10 +26,17 @@ the card tests run where only the port is installed:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py``.
 """
 
+import dataclasses
+import importlib.util
+import math
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import rmsnorm as rn
@@ -89,6 +96,123 @@ def test_rmsnorm_wrapper_takes_plain_path_on_cpu():
     before = rn.launches
     assert torch.equal(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w))
     assert rn.launches == before
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _script(name):
+    """A script at the repository root as a module (``chip_smoke.py``'s
+    phases run only when called; ``time_grouped_gemm.py`` imports torch
+    alone)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# RMSNorm's main-path shapes, (rows, d, path), as chip_smoke.py checks and times them
+RMS_SHAPES = _script("time_grouped_gemm").RMS_SHAPES
+
+
+def _norm_widths(cfg):
+    """The widths the model normalises: d_model, head_dim where q/k are
+    normed per head, a Mamba layer's d_inner."""
+    widths = {cfg.d_model}
+    if cfg.qk_norm:
+        widths.add(cfg.resolved_head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        widths.add(cfg.ssm_expand * cfg.d_model)
+    return widths
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rmsnorm_plan_puts_every_config_width_on_the_rows_kernel(arch):
+    cfg = get_config(arch)
+    for d in _norm_widths(cfg):
+        for dtype in (torch.bfloat16, torch.float32):
+            p = rn.plan(d, dtype)
+            assert p.kernel == "rows", (arch, d, dtype)
+            assert p.lanes * p.packs * 16 // torch.empty((), dtype=dtype).element_size() == d
+            assert p.packs <= 10 and (p.lanes == 16 or p.lanes % 32 == 0)
+            assert rn.plan(d, dtype, aligned=False).kernel == "generic"
+
+
+@pytest.mark.parametrize("d", [1, 64, 100, 1000, 2047, 4096, 8192])
+def test_rmsnorm_plan_sends_other_widths_to_the_generic_kernel(d):
+    for dtype in (torch.bfloat16, torch.float32):
+        p = rn.plan(d, dtype)
+        assert p == rn.Plan("generic") and p.instance == "generic"
+    assert rn.plan(2048, torch.float16).kernel == "generic"
+
+
+def test_rmsnorm_instances_are_the_cuda_sources_table():
+    """Every planned instance is built: ``ROWS_INSTANCES`` and the
+    ``RMSNORM_ROWS_INSTANCES`` table of ``csrc/rmsnorm.cu`` are the same."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "rmsnorm.cu").read_text()
+    table = src.split("#define RMSNORM_ROWS_INSTANCES(X)", 1)[1].split("\n\n", 1)[0]
+    built = {(int(dt), int(lanes), int(packs))
+             for dt, lanes, packs in re.findall(r"X\(\w+, (\d), (\d+), (\d+)\)", table)}
+    planned = {(rn._DTYPES[dtype], lanes, packs)
+               for dtype, by_width in rn.ROWS_INSTANCES.items()
+               for lanes, packs in by_width.values()}
+    assert built == planned and len(built) == 22
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(n, d) for n, d, _ in RMS_SHAPES]
+                         + [(517, 2048), (20483, 128), (1, 5120), (1, 128)])
+def test_rmsnorm_launch_shape(rows, d, dtype):
+    """One row a block while the rows fit on the SMs one each (no SM holds
+    two decode rows); else whole warps of at most 256 threads a block, the
+    grid within the SMs' resident blocks and the rows spread evenly over
+    the grid-stride loop."""
+    sms = 132
+    p = rn.plan(d, dtype)
+    groups, grid = rn.launch_shape(p, rows, sms)
+    threads = math.ceil(groups * p.lanes / 32) * 32
+    assert threads <= rn.MAX_THREADS
+    if rows <= sms:
+        assert (groups, grid) == (1, rows)
+        return
+    assert groups == min(rn.MAX_THREADS // p.lanes, math.ceil(rows / sms))
+    resident = sms * (rn.SM_THREADS // threads)
+    assert grid <= resident
+    # every row has a group, and no pass of the loop is wasted
+    loops = math.ceil(rows / (grid * groups))
+    assert loops == math.ceil(math.ceil(rows / groups) / resident)
+    assert (grid - 1) * groups * loops < rows
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "gemma2-27b", "llama3.2-1b", "zamba2-2.7b",
+                                  "qwen2-moe-a2.7b", "mamba2-130m"])
+def test_norms_per_forward_counts_the_wrappers_calls(arch, monkeypatch):
+    """``chip_smoke.norms_per_forward`` is what one forward calls the
+    RMSNorm wrapper: a ``.smoke()`` fused step through the kernel path."""
+    from repro_torch.models.model import build_model
+
+    cs = _script("chip_smoke")
+    calls = []
+    plain = rn.rmsnorm
+
+    def counted(x, w, eps=1e-6):
+        calls.append(tuple(x.shape))
+        return plain(x, w, eps)
+
+    monkeypatch.setattr(rn, "rmsnorm", counted)
+    cfg = dataclasses.replace(get_config(arch).smoke(), attention_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    caches = model.init_cache(2, 16, "cpu")
+    toks = torch.ones((2, 4), dtype=torch.int32)
+    logits, _ = model.fused_step(params, {"tokens": toks}, caches, np.array([0, 3]),
+                                 np.array([4, 2]))
+    assert torch.isfinite(logits).all()
+    assert len(calls) == cs.norms_per_forward(cfg) > 0
+    # and at full width the count the card run holds each forward to
+    full = {"qwen3-14b": 161, "gemma2-27b": 185, "llama3.2-1b": 33, "zamba2-2.7b": 127,
+            "qwen2-moe-a2.7b": 49, "mamba2-130m": 49}
+    assert cs.norms_per_forward(get_config(arch)) == full[arch]
 
 
 # --------------------------------------------------------------- flash attn
@@ -275,6 +399,53 @@ def test_rmsnorm_kernel_on_card(cuda_device, dtype, shape):
     ref = rn.rmsnorm_plain(x, w)
     torch.cuda.synchronize(cuda_device)
     _assert_within(out, ref)
+
+
+def _card_rms_case(x, w, kernel):
+    """The kernel ``kernel`` ran once a call, within tolerance of the plain
+    version, and two launches are bit-identical."""
+    before = (rn.launches, rn.rows_launches, rn.generic_launches)
+    out, again = rn.rmsnorm(x, w), rn.rmsnorm(x, w)
+    ref = rn.rmsnorm_plain(x, w)
+    torch.cuda.synchronize(x.device)
+    ran = (rn.launches - before[0], rn.rows_launches - before[1],
+           rn.generic_launches - before[2])
+    assert ran == ((2, 2, 0) if kernel == "rows" else (2, 0, 2))
+    _assert_within(out, ref)
+    assert torch.equal(out, again)
+
+
+def _card_rms_inputs(device, dtype, rows, d):
+    g = torch.Generator(device=device).manual_seed(rows * 7 + d)
+    return (torch.randn(rows, d, generator=g, device=device).to(dtype),
+            torch.randn(d, generator=g, device=device) * 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(n, d) for n, d, _ in RMS_SHAPES]
+                         + [(517, 2048), (20483, 128), (129, 768), (3, 4608), (1, 5120),
+                            (1, 128)])
+def test_rmsnorm_rows_kernel_on_card(cuda_device, dtype, rows, d):
+    """Every main-path shape, row counts that leave a block's last row
+    groups idle, and one row: on the rows kernel."""
+    x, w = _card_rms_inputs(cuda_device, dtype, rows, d)
+    _card_rms_case(x, w, "rows")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["d100", "d1000", "x_misaligned", "w_misaligned"])
+def test_rmsnorm_generic_kernel_on_card(cuda_device, dtype, case):
+    """Widths no instance covers (element loads at 100, 16-byte loads at
+    1000) and a misaligned x or w: on the generic kernel."""
+    d = {"d100": 100, "d1000": 1000}.get(case, 2048)
+    x, w = _card_rms_inputs(cuda_device, dtype, 65, d)
+    if case == "x_misaligned":
+        x = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)[1:].view_as(x).copy_(x)
+    if case == "w_misaligned":
+        w = torch.empty(d + 1, device=cuda_device)[1:].copy_(w)
+    _card_rms_case(x, w, "generic")
 
 
 @pytest.mark.gpu

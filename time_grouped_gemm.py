@@ -1,8 +1,9 @@
 """Time one checkout's grouped-GEMM kernel at qwen2-moe's four main-path
-shapes, or its SSD-scan kernel, so that two versions can be compared on
-one card in one call.
+shapes, or its SSD-scan or RMSNorm kernel, so that two versions can be
+compared on one card in one call.
 
-    python3 time_grouped_gemm.py [--tree DIR] [--label NAME] [--kernel grouped_gemm|ssd_scan]
+    python3 time_grouped_gemm.py [--tree DIR] [--label NAME]
+                                 [--kernel grouped_gemm|ssd_scan|rmsnorm]
 
 ``--tree`` is the root of a checkout of this repository (default: this
 one); its ``src/repro_torch`` kernel is built and timed with the helpers
@@ -26,6 +27,14 @@ updated in place: mamba2-130m H 24 × P 64 × N 128, zamba2-2.7b H 80 ×
 P 64 × N 64) and mamba2's multi-chunk prefill (2 rows × 512 tokens, four
 chunks, a carried state), each checked against the plain version first,
 beside its bound and a read of the same bytes.
+
+``--kernel rmsnorm`` times RMSNorm, bf16, at every shape of
+:data:`RMS_SHAPES` back to back (no L2 flush: on the main path x was
+written by the op just before), each checked against the plain version
+first, beside the plain version, ``F.rms_norm`` (a yardstick), the bytes
+bound, a copy and a read of the same bytes, and the floor: an empty kernel
+(a spin of 0 cycles) under the same timing.  ``chip_smoke.py`` times the
+same shapes with the same function, :func:`time_rms`.
 """
 
 from __future__ import annotations
@@ -38,6 +47,29 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
+
+# RMSNorm's main-path shapes, (rows, d, path): chunk = one fused [8, 64]
+# step of 8 slots, decode = [8, 1]; qwen3-14b's q/k norms take 40 / 8 heads
+# of 128 a token
+RMS_SHAPES = (
+    (512, 2048, "llama3.2-1b / qwen2-moe chunk"),
+    (8, 2048, "llama3.2-1b / qwen2-moe decode"),
+    (512, 5120, "qwen3-14b width / zamba2 d_inner chunk"),
+    (8, 5120, "qwen3-14b width / zamba2 d_inner decode"),
+    (20480, 128, "qwen3-14b q-norm chunk"),
+    (320, 128, "qwen3-14b q-norm decode"),
+    (4096, 128, "qwen3-14b k-norm chunk"),
+    (64, 128, "qwen3-14b k-norm decode"),
+    (512, 768, "mamba2-130m width chunk"),
+    (8, 768, "mamba2-130m width decode"),
+    (512, 1536, "mamba2-130m d_inner chunk"),
+    (8, 1536, "mamba2-130m d_inner decode"),
+    (512, 2560, "zamba2-2.7b width chunk"),
+    (8, 2560, "zamba2-2.7b width decode"),
+    (512, 3072, "gemma-7b width, checked only"),
+    (512, 4608, "gemma2-27b width, checked only"),
+)
 
 
 def host_us(dev, fn, iters=200) -> float:
@@ -83,11 +115,46 @@ def time_ssd(cs, dev, flush) -> dict:
     return rows
 
 
+def time_rms(cs, dev) -> dict:
+    """The tree's RMSNorm at every shape of RMS_SHAPES, bf16, back to back,
+    with the helpers of the tree's ``chip_smoke.py`` (``cs``)."""
+    dtype = torch.bfloat16
+    floor = cs.time_ms(dev, lambda: torch.cuda._sleep(0))
+    plan = getattr(cs.rn, "plan", None)
+    rows = {}
+    for n, d, what in RMS_SHAPES:
+        x, w = cs.rms_inputs(dev, dtype, rows=n, d=d)
+        cs.within(cs.rn.rmsnorm(x, w), cs.rn.rmsnorm_plain(x, w))
+        w1, y = (1.0 + w).to(dtype), torch.empty_like(x)
+        byts = 2 * x.numel() * x.element_size() + w.numel() * 4
+        same_bytes = torch.ones(byts // 2, dtype=dtype, device=dev)
+        b_ms, b_by = cs.bound(byts, 4 * x.numel(), torch.float32)
+        rows[f"{n}x{d}"] = r = dict(
+            path=what, instance=plan(d, dtype).instance if plan else "one block a row",
+            ms=cs.time_ms(dev, lambda: cs.rn.rmsnorm(x, w)),
+            plain_ms=cs.time_ms(dev, lambda: cs.rn.rmsnorm_plain(x, w)),
+            library_ms=cs.time_ms(dev, lambda: F.rms_norm(x, (d,), w1, 1e-6))
+            if hasattr(F, "rms_norm") else None,
+            copy_ms=cs.time_ms(dev, lambda: y.copy_(x)),
+            read_ms=cs.time_ms(dev, lambda: same_bytes.sum()),
+            floor_ms=floor, bound_ms=b_ms, bound_by=b_by,
+        )
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[time] rmsnorm [{n}, {d}] bf16 ({what}; {r['instance']}): kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, F.rms_norm {lib}, bound {b_ms:.5f} ms "
+              f"({b_by}: {byts / 1e6:.2f} MB), kernel/bound {r['ms'] / b_ms:.2f}x; a copy of "
+              f"the same bytes {r['copy_ms']:.4f} ms, a read {r['read_ms']:.4f} ms; empty-kernel "
+              f"floor {floor:.4f} ms", flush=True)
+        del x, y, same_bytes
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default=None)
-    ap.add_argument("--kernel", choices=("grouped_gemm", "ssd_scan"), default="grouped_gemm")
+    ap.add_argument("--kernel", choices=("grouped_gemm", "ssd_scan", "rmsnorm"),
+                    default="grouped_gemm")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_grouped_gemm: no CUDA device")
@@ -104,8 +171,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    if args.kernel == "ssd_scan":
-        rows = time_ssd(cs, dev, flush)
+    if args.kernel in ("ssd_scan", "rmsnorm"):
+        rows = time_ssd(cs, dev, flush) if args.kernel == "ssd_scan" else time_rms(cs, dev)
         print(json.dumps({"tree": args.label or str(tree), "kernel": args.kernel,
                           "build_s": build_s, "rows": rows}))
         return 0
