@@ -21,7 +21,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and an idle row, plain and with window 64 + softcap 50, dense and paged
    (P 16, 48, 64): paged bit-equal to dense on the gathered view (trash
    page garbage or zeroed) and two launches bit-identical; the flash
-   kernels at qwen3-14b's heads (D 128, GQA 40 / 8); the grouped GEMM
+   kernels at qwen3-14b's heads (D 128, GQA 40 / 8) and gemma-7b's (D 256,
+   16 / 16: decode, fused chunk, window 64 + softcap 50, the 100-query
+   chunk, paged at P 16, 64 and 48, every case bit-identical twice and
+   paged bit-equal to dense), the decode kernel at gemma2-27b's heads (D
+   128, GQA 32 / 16) too; every D 256 instance built without a spill
+   store (``[build]``); the grouped GEMM
    at qwen2-moe's gate/up and down shapes under decode and chunk routing,
    and on edge groupings; RMSNorm in fp32 and bf16 at every main-path
    shape of ``RMS_SHAPES`` (``time_grouped_gemm.py``), at row counts that
@@ -61,10 +66,20 @@ Phases (any failure exits non-zero; nothing is caught):
    head-dim-128 flash kernel must have launched. Then qwen3-14b (40
    layers, d_model 5120, per-head q/k norms, GQA 40 / 8 at D 128, ~29.5 GB
    bf16): ``[parity-qwen3]`` as phase 5, ``[serve-qwen3]`` and
-   ``[trace-qwen3]`` as phase 4. In every serve and parity run each
-   forward must launch ``norms_per_forward(cfg)`` RMSNorms (2 a block,
-   + 2 for q/k norms, + 2 for post-norms, 2 a Mamba layer, + 1; qwen3-14b
-   161), every one on the rows kernel;
+   ``[trace-qwen3]`` as phase 4. gemma-7b (28 layers, d_model 3072, 16
+   heads of 256, GeGLU, tied and scaled embeddings, ~17.1 GB bf16):
+   ``[parity-gemma]`` (phase 5, the fp32 engines dense and paged),
+   ``[serve-gemma]``, ``[trace-gemma]`` and ``[serve-gemma-paged]`` (phases
+   4 and 6). gemma2-27b (46 layers, window 4096 on every other layer,
+   softcaps, post-norms, ~54.4 GB bf16): ``[parity-gemma2]`` (2 fp32
+   layers, one row prefilled to 4300 tokens so the local layer's window
+   masks keys in both the chunk tile and the decode kernel; 46 bf16
+   layers' prefill logits), ``[serve-gemma2]`` and ``[trace-gemma2]``,
+   dense KV. Every engine run's chunk steps must run a chunk tile. In
+   every serve and parity run each forward must launch
+   ``norms_per_forward(cfg)`` RMSNorms (2 a block, + 2 for q/k norms, + 2
+   for post-norms, 2 a Mamba layer, + 1; qwen3-14b 161, gemma-7b 57,
+   gemma2-27b 185), every one on the rows kernel;
 8. SSM and hybrid: ``[check-ssd]`` holds the SSD chunked-scan kernel to
    its plain version (fp32 and bf16 within 1e-5 and 4e-2 of max |ref|,
    for y and the final state) at the reference test's shapes, both
@@ -95,8 +110,8 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
    yardstick gather + SDPA (no single PyTorch call reads through a page
-   table); the flash kernels at qwen2-moe's head dim 128 and zamba2's 80
-   too, and the bf16 chunk tile's fixed cost (8 rows at depth 0) and cost
+   table); the flash kernels at qwen2-moe's head dim 128, zamba2's 80 and
+   gemma-7b's 256 too, and the bf16 chunk tile's fixed cost (8 rows at depth 0) and cost
    a key tile (one row at depth 1984: 32 key tiles in order), and the
    decode kernel's fixed cost (8 rows at depth 0, merge included) and
    deepest split walk (one row at depth 2047).  SDPA, the yardstick, is
@@ -123,6 +138,7 @@ import json
 import math
 import os
 import platform
+import re
 import shutil
 import subprocess
 import sys
@@ -205,12 +221,23 @@ def require(got: dict, names, what: str) -> None:
         raise AssertionError(f"{what}: a norm ran on the generic RMSNorm kernel: {got}")
 
 
+def require_chunk_tile(got: dict, paged: bool, what: str) -> None:
+    """Fail unless the run's chunk steps went through a chunk tile: flash
+    launches beyond the decode kernel's (the wrapper counts both)."""
+    name = "flash_attention_paged" if paged else "flash_attention"
+    if not got[name] > got[name + "_decode"]:
+        raise AssertionError(f"{what}: no flash launch ran a chunk tile: {got}")
+
+
 LLAMA = "llama3.2-1b"
 MOE = "qwen2-moe-a2.7b"
 MAMBA = "mamba2-130m"
 ZAMBA = "zamba2-2.7b"
 QWEN3 = "qwen3-14b"
-TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3"}     # phase tags: [serve], [serve-moe], ...
+GEMMA = "gemma-7b"
+GEMMA2 = "gemma2-27b"
+# phase tags: [serve], [serve-moe], ...
+TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3", GEMMA: "-gemma", GEMMA2: "-gemma2"}
 # the kernels each path must launch: dense or paged KV (decode steps on the
 # split-KV decode kernel), plus the grouped GEMM for an MoE model
 DENSE_PATH = ("flash_attention", "flash_attention_decode", "rmsnorm")
@@ -276,7 +303,8 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
 
 # attention heads (query, KV) and head dim of each served model
 HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128),
-         ZAMBA: dict(h=32, kv=32, d=80), QWEN3: dict(h=40, kv=8, d=128)}
+         ZAMBA: dict(h=32, kv=32, d=80), QWEN3: dict(h=40, kv=8, d=128),
+         GEMMA: dict(h=16, kv=16, d=256), GEMMA2: dict(h=32, kv=16, d=128)}
 
 
 def flash_cases(dev, dtype, arch=LLAMA):
@@ -366,6 +394,7 @@ def paged_cases(dev, dtype, arch=LLAMA):
     row 1 reading row 0's shared pages; pages of 16, 64 and 48 tokens (48
     does not divide the kernel's 64-key tile); window and softcap.  For the
     MoE and hybrid models' head dims, pages of 64 only."""
+    full = arch in (LLAMA, GEMMA)
     rng = np.random.default_rng(SEED)
     decode = rng.integers(0, 2048, size=8).tolist()
     lens = [64, 1, 0, 64, 17, 1, 64, 0]
@@ -373,12 +402,12 @@ def paged_cases(dev, dtype, arch=LLAMA):
     depths[1] = depths[0] + 64
     hk = HEADS[arch]
     cases = {}
-    for P in (16, 64, 48) if arch == LLAMA else (64,):
+    for P in (16, 64, 48) if full else (64,):
         cases[f"fused_chunk_P{P}"] = (
             paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=64, **hk), {})
     cases["decode_P64"] = (
         paged_inputs(dev, dtype, P=64, depths=decode, q_lens=[1] * 8, sq=1, **hk), {})
-    if arch == LLAMA:
+    if full:
         cases["fused_chunk_P64_window_softcap"] = (
             paged_inputs(dev, dtype, P=64, depths=depths, q_lens=lens, sq=64, **hk),
             {"window": 64, "softcap": 50.0})
@@ -472,13 +501,40 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
+    entries = build_entries(_build.build_log())
     # the bf16 grouped-GEMM kernel keeps its 64 accumulators a thread in
-    # registers: a spill would put them in local memory
-    report = _build.build_log().split("grouped_gemm_wgmma_kernel", 1)[-1].split("Compiling entry")[0]
-    if "0 bytes spill stores, 0 bytes spill loads" not in report:
-        raise AssertionError(f"grouped_gemm_wgmma_kernel spills or was not built: {report}")
-    log("[build] grouped_gemm_wgmma_kernel: " + " ".join(
-        line.strip() for line in report.splitlines() if "spill" in line or "Used" in line))
+    # registers, and every head-dim-256 flash instance (the decode kernel
+    # at 1 and 8 rows, its merge, both chunk tiles; fp32 and bf16; dense
+    # and paged) its output: a spill would put them in local memory
+    for what, count, picked in (
+        ("grouped_gemm_wgmma_kernel", 1,
+         [e for e in entries if e["name"] == "grouped_gemm_wgmma_kernel"]),
+        ("D 256 flash", 14,
+         [e for e in entries if e["name"].startswith("flash_fwd") and "Li256E" in e["mangled"]]),
+    ):
+        for e in picked:
+            log(f"[build] {what} {e['name']}: {e['registers']} registers, {e['spill_stores']} "
+                "bytes spill stores")
+        if len(picked) != count or any(e["spill_stores"] for e in picked):
+            raise AssertionError(f"{what}: kernels missing or spilling: {picked}")
+
+
+def build_entries(build_log: str) -> list:
+    """Each kernel ``nvcc -Xptxas -v`` compiled: its mangled name, template
+    name, registers and bytes of spill stores."""
+    entries, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+kernel)[IE]", m.group(1))
+            cur = {"mangled": m.group(1), "name": name.group(1) if name else m.group(1),
+                   "registers": None, "spill_stores": None}
+            entries.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur is not None and "Used" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
 
 
 def phase_check(dev) -> dict:
@@ -561,7 +617,38 @@ def phase_check(dev) -> dict:
             errs[("flash_attention_paged", "d80_" + case, dtype)] = err
             log(f"[check] flash_attention_paged d80 {case} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e}; equal to the dense kernel on the gathered view")
-        for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128")):
+        # gemma-7b's attention: head dim 256, no GQA (decode rows on the
+        # decode kernel's 1-row instance); every case launched twice gives
+        # the same bits; paged at P 16, 64 and 48, plain and with window 64
+        # + softcap 50, bit-equal to the dense kernel on the gathered view
+        for case, (inp, extra) in flash_cases(dev, dtype, GEMMA).items():
+            out = run_flash(fa.flash_attention, inp, extra)
+            again = run_flash(fa.flash_attention, inp, extra)
+            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
+            if not torch.equal(out, again):
+                raise AssertionError(f"flash d256 {case}: two launches differ")
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash d256 {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention", "d256_" + case, dtype)] = err
+            log(f"[check] flash_attention d256 {case} {str(dtype)[6:]}: max abs err {err:.3e}, two "
+                "launches bit-identical")
+        for case, (inp, extra) in paged_cases(dev, dtype, GEMMA).items():
+            out = run_paged(fa.flash_attention_paged, inp, extra)
+            again = run_paged(fa.flash_attention_paged, inp, extra)
+            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
+            dense = run_flash(fa.flash_attention, gathered(inp), extra)
+            if not (torch.equal(out, dense) and torch.equal(out, again)):
+                raise AssertionError(f"flash_paged d256 {case}: not bit-equal to the dense kernel "
+                                     "on the gathered view, or to itself")
+            for bi, n in enumerate(inp["q_lens"].tolist()):
+                if out[bi, n:].any():
+                    raise AssertionError(f"flash_paged d256 {case}: row {bi} leaked past q_len={n}")
+            errs[("flash_attention_paged", "d256_" + case, dtype)] = err
+            log(f"[check] flash_attention_paged d256 {case} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e}; equal to the dense kernel on the gathered view, two launches "
+                "bit-identical")
+        for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128"), (GEMMA, "d256")):
             dense_inp, paged_inp = ragged_chunk_cases(dev, dtype, arch)
             out = run_flash(fa.flash_attention, dense_inp, {})
             err = within(out, run_flash(fa.flash_attention_plain, dense_inp, {}))
@@ -695,7 +782,8 @@ def phase_check_decode(dev) -> dict:
     it zeroed; every case launched twice must give the same bits."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for arch, tag in ((LLAMA, "d64"), (MOE, "d128"), (ZAMBA, "d80"), (QWEN3, "d128g5")):
+        for arch, tag in ((LLAMA, "d64"), (MOE, "d128"), (ZAMBA, "d80"), (QWEN3, "d128g5"),
+                          (GEMMA, "d256"), (GEMMA2, "d128g2")):
             hk = HEADS[arch]
             split = fa._decode_split(dtype, hk["d"])
             depths, lens = [0, split - 1, split, split + 1, 2047, 1000], [1, 1, 1, 1, 1, 0]
@@ -839,6 +927,7 @@ def phase_serve(dev, arch=LLAMA) -> dict:
         tok_s.append(toks / wall)
         require(eng_counts, want, "dense engine")
         require_per_forward(eng_counts, cfg, "dense engine")
+        require_chunk_tile(eng_counts, False, "dense engine")
         for r in reqs:
             if not (r.done and len(r.out_tokens) == 32
                     and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -956,7 +1045,10 @@ def report_trace(prof, wall, tag, what) -> None:
                                            for dt, key, n in copies))
 
 
-def phase_parity(dev, arch=LLAMA) -> None:
+def phase_parity(dev, arch=LLAMA, paged=False) -> None:
+    """2 full-width layers in fp32: greedy tokens with the kernels and with
+    the plain versions, through a dense engine and (``paged``) a paged one
+    (P 64), all identical; then :func:`bf16_prefill_parity`."""
     tag = f"[parity{TAGS[arch]}]"
     # 2 full-width layers in fp32: kernels against plain versions, 32 greedy steps
     tokens = {}
@@ -972,13 +1064,32 @@ def phase_parity(dev, arch=LLAMA) -> None:
         if impl == "pallas":
             require(got, path(arch, paged=False), "fp32 parity")
             require_per_forward(got, cfg, "fp32 parity")
+        if paged:
+            eng = make_paged_engine(cfg, params, dev, slots=4, max_len=1024, page_tokens=64)
+            reset_counts()
+            reqs, _ = drive(eng, cfg, dev, requests=6, max_new=32, seed=SEED + 1)
+            tokens[impl + " paged"] = [r.out_tokens for r in reqs]
+            got = counts()
+            log(f"{tag} fp32 2 layers impl={impl} paged P64: launches {got}")
+            if impl == "pallas":
+                require(got, path(arch, paged=True), "fp32 paged parity")
+                require_per_forward(got, cfg, "fp32 paged parity")
+            del eng
         del params
         free_card()
-    if tokens["pallas"] != tokens["naive"]:
-        raise AssertionError("fp32 greedy tokens differ between kernel and plain paths")
-    log(f"{tag} fp32 2 layers: greedy tokens identical over 6 requests x 32 steps")
+    for name, toks in tokens.items():
+        if toks != tokens["naive"]:
+            raise AssertionError(f"fp32 greedy tokens differ between {name} and the dense "
+                                 "plain path")
+    log(f"{tag} fp32 2 layers: greedy tokens identical over 6 requests x 32 steps ("
+        + ", ".join(tokens) + ")")
+    bf16_prefill_parity(dev, arch, tag)
 
-    # bf16 full depth: one prefill's logits, kernels vs plain
+
+def bf16_prefill_parity(dev, arch, tag) -> None:
+    """bf16 at full depth: one [2, 300] prefill's last-token logits, kernels
+    against plain versions (finite; difference and argmax agreement
+    reported)."""
     logits = {}
     cfg = full_cfg(arch)
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -998,6 +1109,49 @@ def phase_parity(dev, arch=LLAMA) -> None:
         f"{logits['naive'].abs().max().item():.2f})")
     del params
     free_card()
+
+
+GEMMA2_DEEP = 4300      # prompt tokens of the row that passes gemma2's 4096-key window
+
+
+def phase_parity_gemma2(dev) -> None:
+    """gemma2-27b: 2 full-width layers in fp32 (layer 0 local, window 4096;
+    layer 1 global), kernels against plain versions through one engine of
+    2 slots and max_len 8192 on two requests, one of GEMMA2_DEEP prompt
+    tokens: its later prefill chunks (the chunk tile) and every decode step
+    (the decode kernel) see the local layer's window mask keys.  Greedy
+    tokens must be identical.  Then :func:`bf16_prefill_parity` at 46
+    layers.  The fp32 model at full depth (~109 GB) does not fit the card."""
+    tag = "[parity-gemma2]"
+    tokens = {}
+    for impl in ("pallas", "naive"):
+        cfg = full_cfg(GEMMA2, n_layers=2, dtype="float32", attention_impl=impl)
+        params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        eng = make_engine(cfg, params, dev, slots=2, max_len=8192)
+        rng = np.random.default_rng(SEED + 5)
+        reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=n).tolist(),
+                        max_new_tokens=32) for i, n in enumerate((GEMMA2_DEEP, 700))]
+        reset_counts()
+        wall = serve_reqs(eng, reqs, dev)
+        got = counts()
+        tokens[impl] = [r.out_tokens for r in reqs]
+        deepest = GEMMA2_DEEP + len(reqs[0].out_tokens) - 1
+        log(f"{tag} fp32 2 layers impl={impl}: {wall:.2f}s; row 0 attended from depth "
+            f"{deepest} (keys below {deepest - cfg.sliding_window + 1} masked in layer 0's "
+            f"{cfg.sliding_window}-key window); launches {got}")
+        if impl == "pallas":
+            require(got, path(GEMMA2, paged=False), "gemma2 fp32 parity")
+            require_per_forward(got, cfg, "gemma2 fp32 parity")
+            require_chunk_tile(got, False, "gemma2 fp32 parity")
+        if not all(r.done and len(r.out_tokens) == 32 for r in reqs):
+            raise AssertionError(f"gemma2 parity requests not served: {tokens[impl]}")
+        del eng, params
+        free_card()
+    if tokens["pallas"] != tokens["naive"]:
+        raise AssertionError(f"gemma2 fp32 greedy tokens differ: {tokens}")
+    log(f"{tag} fp32 2 layers: greedy tokens identical over 2 requests x 32 steps, one row "
+        f"prefilled to {GEMMA2_DEEP} tokens, past layer 0's {cfg.sliding_window}-key window")
+    bf16_prefill_parity(dev, GEMMA2, tag)
 
 
 def shared_prefix_requests(cfg, *, n, prefix, suffix, max_new, rid0=0, seed=SEED):
@@ -1069,7 +1223,7 @@ PAGED_REPEATS = 3
 
 
 def phase_serve_paged(dev, arch=LLAMA) -> dict:
-    tag = "[serve-paged]" if arch == LLAMA else "[serve-moe-paged]"
+    tag = f"[serve{TAGS[arch]}-paged]"
     want = path(arch, paged=True)
     cfg = full_cfg(arch)
     log(f"{tag} repro_torch.launch.serve.main(['--arch', '{arch}', '--kv-page-tokens', '64'])")
@@ -1102,6 +1256,7 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
         got = counts()
         require(got, want, "paged engine")
         require_per_forward(got, cfg, "paged engine")
+        require_chunk_tile(got, True, "paged engine")
         kv = eng.straggler_report()["kv"]
         delta = {k: kv[k] - prev[k] for k in prev}
         prev = {k: kv[k] for k in prev}
@@ -1874,6 +2029,8 @@ def phase_time(dev) -> dict:
     time_paged(dev, flush, rows, MOE, "d128_", dtype)
     time_flash(dev, flush, rows, ZAMBA, "d80_", dtype)
     time_paged(dev, flush, rows, ZAMBA, "d80_", dtype)
+    time_flash(dev, flush, rows, GEMMA, "d256_", dtype)
+    time_paged(dev, flush, rows, GEMMA, "d256_", dtype)
     for (name, case), r in rows.items():
         if name == "flash_attention_paged":
             continue
@@ -1893,19 +2050,16 @@ def phase_time(dev) -> dict:
     return rows
 
 
-def decode_entries(name, times, errs, served, served_paged, served_moe, served_moe_paged,
-                   served_zamba, parity_ssm) -> dict:
+def decode_entries(name, times, errs, clis) -> dict:
     """The decode kernel's numbers at each head dim for the dense or the
-    paged flash row: this run's main-path launches, timed decode shape,
-    bound, plain and library times, and [check] error."""
+    paged flash row: this run's main-path launches (``clis``: head-dim tag
+    → (timing prefix, dense CLI counts, paged CLI counts)), timed decode
+    shape, bound, plain and library times, and [check] error."""
     paged = name.endswith("paged")
     count = name + "_decode"
     out = {}
-    for tag, prefix, run in (
-        ("d64", "", served_paged["cli"] if paged else served["cli"]),
-        ("d128", "d128_", served_moe_paged["cli"] if paged else served_moe["cli"]),
-        ("d80", "d80_", parity_ssm["paged_cli"] if paged else served_zamba["cli"]),
-    ):
+    for tag, (prefix, dense_cli, paged_cli) in clis.items():
+        run = paged_cli if paged else dense_cli
         t = times[(name, prefix + "decode")]
         out[tag] = {
             "launches": run[count], "max_abs_err": errs[(name, prefix + (
@@ -1935,6 +2089,12 @@ def main() -> int:
     served_moe_paged = phase_serve_paged(dev, MOE)
     phase_parity(dev, QWEN3)
     served_qwen3 = phase_serve(dev, QWEN3)
+    phase_parity(dev, GEMMA, paged=True)
+    served_gemma = phase_serve(dev, GEMMA)
+    served_gemma_paged = phase_serve_paged(dev, GEMMA)
+    phase_parity_gemma2(dev)
+    free_card()
+    served_gemma2 = phase_serve(dev, GEMMA2)
     served_mamba = phase_serve_ssm(dev, MAMBA)
     served_zamba = phase_serve_ssm(dev, ZAMBA)
     parity_ssm = phase_parity_ssm(dev)
@@ -1942,8 +2102,11 @@ def main() -> int:
     times = phase_time(dev)
 
     # the split-KV decode kernel's numbers at each head dim, dense and paged
-    decode = {name: decode_entries(name, times, errs, served, served_paged, served_moe,
-                                   served_moe_paged, served_zamba, parity_ssm)
+    clis = {"d64": ("", served["cli"], served_paged["cli"]),
+            "d128": ("d128_", served_moe["cli"], served_moe_paged["cli"]),
+            "d80": ("d80_", served_zamba["cli"], parity_ssm["paged_cli"]),
+            "d256": ("d256_", served_gemma["cli"], served_gemma_paged["cli"])}
+    decode = {name: decode_entries(name, times, errs, clis)
               for name in ("flash_attention", "flash_attention_paged")}
     kernels = []
     for name, case, err_case, run, source, replaces in (
@@ -1990,6 +2153,16 @@ def main() -> int:
                 "bound_by": t80["bound_by"], "library_ms": t80["library_ms"],
                 "max_abs_err": errs[(name, "d80_" + err_case, torch.bfloat16)],
             }
+            # the head-dim-256 instance, on gemma-7b's serve path
+            t256 = times[(name, "d256_fused_chunk")]
+            gemma_run = served_gemma_paged if name.endswith("paged") else served_gemma
+            row["d256"] = {
+                "launches": gemma_run["cli"][name],
+                "launches_per_forward": gemma_run["per_forward"][name],
+                "ms": t256["ms"], "plain_ms": t256["plain_ms"], "bound_ms": t256["bound_ms"],
+                "bound_by": t256["bound_by"], "library_ms": t256["library_ms"],
+                "max_abs_err": errs[(name, "d256_" + err_case, torch.bfloat16)],
+            }
             row["decode"] = decode[name]
         if name == "grouped_gemm":
             # the four main-path shapes: gate/up and down at decode and chunk
@@ -2009,16 +2182,17 @@ def main() -> int:
                 arch: {"launches": run["cli"][name], "launches_per_forward": run["per_forward"][name],
                        "rows_kernel": run["cli"]["rmsnorm_rows"]}
                 for arch, run in ((LLAMA, served), (MOE, served_moe), (QWEN3, served_qwen3),
+                                  (GEMMA, served_gemma), (GEMMA2, served_gemma2),
                                   (MAMBA, served_mamba), (ZAMBA, served_zamba))}
         kernels.append(row)
     # the split-KV decode kernel (and its merge) as kernels of their own:
-    # D 64 at the top, D 128 and D 80 nested, as the chunk rows
+    # D 64 at the top, D 128, D 80 and D 256 nested, as the chunk rows
     for name, dec in decode.items():
         kernels.append(dict(
             name=name + "_decode", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:" + (
                 "120" if name.endswith("paged") else "41"),
-            shape="decode", d128=dec["d128"], d80=dec["d80"], **dec["d64"]))
+            shape="decode", d128=dec["d128"], d80=dec["d80"], d256=dec["d256"], **dec["d64"]))
     t_m, t_z = (times[("ssd_scan", f"{a}_fused_chunk")] for a in (MAMBA, ZAMBA))
     t_p = times[("ssd_scan", f"{MAMBA}_prefill")]
     kernels.append({

@@ -31,8 +31,9 @@
 // and stops at its last visible key, q_offset + min(q_len, last row) - 1,
 // so idle rows cost nothing and no unwritten cache slot is read.
 //
-// The bf16 chunk tile (`flash_fwd_mma_kernel`, Sq·rep > 16) runs both
-// products on the tensor cores, in the FlashAttention-2 shape.
+// The bf16 chunk tile (`flash_fwd_mma_kernel`, Sq·rep over the decode
+// kernel's rows) runs both products on the tensor cores, in the
+// FlashAttention-2 shape.
 //   Bound: a 64-token chunk does 64·rep query rows per key, at most 256
 //   flops per byte of K/V (112 at the mixed-row shape chip_smoke.py times):
 //   under the card's ~295 flop/byte bf16 ridge, so bytes bound it over the
@@ -42,11 +43,14 @@
 //   old tile) it ran at a fifth of one SM's fp32 rate.
 //   Design: 64 rows, 4 warps of 16 rows (128 threads).  Q is copied to
 //   shared memory once as bf16 (`cp.async`, with key tile 0) and each warp
-//   keeps its D/16 A-fragments in registers (`ldmatrix.x4`).  S = Q·Kᵀ is
+//   keeps its D/16 A-fragments in registers (`ldmatrix.x4`), or at D 256,
+//   where O's 128 fp32 registers a lane leave no room for them, reads each
+//   k-step's fragment from that tile again (169 KB of shared memory: one
+//   block an SM).  S = Q·Kᵀ is
 //   `mma.sync.m16n8k16` bf16 with fp32 accumulators, K's B-fragments
-//   straight from the padded rows by `ldmatrix` (row strides of 144, 176
-//   and 272 bytes put the 8 rows of each read on 8 distinct groups of four
-//   banks: no swizzle).  Scale, softcap and the softmax run in fp32 on the
+//   straight from the padded rows by `ldmatrix` (row strides of 144, 176,
+//   272 and 528 bytes put the 8 rows of each read on 8 distinct groups of
+//   four banks: no swizzle).  Scale, softcap and the softmax run in fp32 on the
 //   accumulators, in log2 units so each exponential is one `ex2.approx`;
 //   each row's max and sum are reduced over the quad of lanes that owns it.
 //   The masks are applied only on a warp's boundary tiles, as one key range
@@ -69,21 +73,23 @@
 //
 // The split-KV decode kernel (`flash_fwd_decode_kernel`, then
 // `flash_fwd_decode_merge_kernel`) takes every call with Sq·rep <= 16 rows
-// per (batch row, KV head): decode steps, and short query runs with few
-// heads, in fp32 and bf16, dense and paged.
+// per (batch row, KV head), 8 at D 256 (`dec_rows`): decode steps, and
+// short query runs with few heads, in fp32 and bf16, dense and paged.
 //   Bound: bytes.  A decode row reads its cache up to its depth once and
 //   does ~4 flops per key element for each of its `rep` query heads; at
 //   chip_smoke.py's decode shape the bound is a few microseconds, so what
 //   sets the time is how many bytes are in flight and how many SMs work.
 //   Design (FlashDecoding): the key axis is cut at fixed absolute positions
-//   into splits of L keys (256 in bf16, 128 in fp32); split s covers keys
+//   into splits of L keys (`dec_split`: 256, 128 or 64 as a K row takes at
+//   most 128, 512 or more bytes); split s covers keys
 //   [s·L, (s+1)·L) of the (b, g) group's range.  The grid is (k_len / L,
 //   KV, B), so a deep row spreads over many SMs; a block whose split misses
 //   the group's range returns at once.  A block (128 threads, 4 warps) holds
 //   all Sq·rep rows of its group, so one read of a K/V row serves every
 //   query head of the group.  It issues the copies of ALL its L/64 key
-//   tiles at once, one `cp.async` stage each (128 KB in flight at D 128),
-//   after one pass that computes the tiles' key-row offsets into shared
+//   tiles at once, one `cp.async` stage each (68 KB in flight at bf16
+//   D 128, 132 KB at D 256), after one pass that computes the tiles'
+//   key-row offsets into shared
 //   memory (a paged row's one table read, division and remainder, not one
 //   per 16-byte copy).  Each warp owns 16 keys of every tile and keeps its
 //   own online softmax: two lanes a key score it over half the dims each
@@ -92,8 +98,8 @@
 //   warp's row max; P goes through shared memory, and P·V runs with dim
 //   pairs over lanes (2·32·ceil(D/64) >= D: a static_assert refuses an
 //   instance that would drop a dim, as 16 lanes of 5 dims at D 80 once
-//   would have).  At the
-//   end the four warps' (m, l, O) merge in shared memory in a fixed order.
+//   would have).  At the end the four warps' (m, l, O) merge in shared
+//   memory in a fixed order.
 //   A group whose range lies in one split writes its output there; else
 //   each split writes fp32 (m, l, O[D]) per row to a workspace the wrapper
 //   allocates, and the merge kernel, launched by the same entry point on
@@ -103,13 +109,15 @@
 //   uses atomics, so dense and paged at the same depths, and two launches,
 //   give the same bits.
 //
-// The old tile (`flash_fwd_kernel`) keeps fp32 chunks (Sq·rep > 16), whose
-// token-identity checks need fp32 products (TF32 or bf16 would break them),
-// on the fp32 CUDA cores.  Q is held in fp32 in shared memory and K/V are
-// read as pairs of elements; four lanes own one of the tile's 64 query
-// rows: each scores 16 keys of a tile and accumulates D/4 output dims (a
-// static_assert holds every instance to whole dim pairs a lane).  Row max
-// and sum are reduced across a row's lanes with shuffles, and the
+// The old tile (`flash_fwd_kernel`) keeps fp32 chunks (Sq·rep over the
+// decode kernel's rows), whose token-identity checks need fp32 products
+// (TF32 or bf16 would break them), on the fp32 CUDA cores.  Q is held in
+// fp32 in shared memory and K/V are read as pairs of elements; four lanes
+// own one of the tile's 64 query rows: each scores a quarter of a key
+// tile and accumulates D/4 output dims (a static_assert holds every
+// instance to whole dim pairs a lane).  The key tile is 64 keys, 32 at
+// D 256 (`ct_bk`), where 64 would overflow shared memory.  Row max and
+// sum are reduced across a row's lanes with shuffles, and the
 // probabilities are exchanged by shuffle for the P·V product.
 //
 // Paged K/V.  One kernel body, two ways to address a key row: the address
@@ -286,12 +294,19 @@ __device__ __forceinline__ void load_kv_tile(T* Kst, T* Vst, const T* k, const T
 constexpr int CT_BR = 64;
 constexpr int CT_TPR = 4;
 
+// its key tile: 64 keys, or 32 at D 256, where two stages of 64 fp32 K
+// and V rows (266 KB) would not fit a block's 227 KB of shared memory
+template <int D>
+__host__ __device__ constexpr int ct_bk() {
+  return D > 128 ? 32 : BK;
+}
+
 // shared memory: Q tile in fp32 [BR][D+1], then two stages of K and V tiles,
-// rows padded by 16 bytes against bank conflicts
+// rows padded by 16 bytes against bank conflicts (199 KB at D 256)
 template <int D>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(CT_BR) * (D + 1) * sizeof(float) +
-         4ull * BK * (D + 16 / sizeof(float)) * sizeof(float);
+         4ull * ct_bk<D>() * (D + 16 / sizeof(float)) * sizeof(float);
 }
 
 // fp32 only; Addr is DenseKV or PagedKV
@@ -305,12 +320,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using T = float;
   constexpr int BR = CT_BR;                 // query rows per block
   constexpr int TPR = CT_TPR;               // lanes per row (a power of two <= 32)
+  constexpr int BK = ct_bk<D>();            // keys per tile (shadows the 64 of the others)
   // each lane owns DPT/2 dim pairs 2*(i*TPR + t): D must split into whole
   // pairs per lane, or the dims past the last pair are never accumulated
   // nor written
   static_assert(D % (2 * TPR) == 0, "head dim must be a multiple of 2 * lanes per row");
   static_assert(BK % TPR == 0, "key tile must split evenly over a row's lanes");
   constexpr int KPT = BK / TPR;             // keys scored per thread per tile
+  static_assert(KPT <= 32, "the visible-key mask is one 32-bit word");
   constexpr int DPT = D / TPR;              // output dims accumulated per thread
   constexpr int LDQ = D + 1;                // fp32 Q row, padded
   constexpr int LDK = D + 16 / sizeof(T);   // K/V row in elements, padded 16 bytes
@@ -509,6 +526,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   constexpr int KSTEPS = D / 16;     // k-steps of Q·Kᵀ
   constexpr int NS = BK / 8;         // n-tiles of S (8 keys each)
   constexpr int NO = D / 8;          // n-tiles of O (8 dims each)
+  // at D 256, O alone is 128 fp32 registers a lane and Q's fragments would
+  // be 64 more: Q's A-fragments are then read from shared memory at each
+  // k-step (the Q tile is never overwritten) and not held in registers
+  constexpr bool Q_REGS = D <= 128;
+  constexpr int QREG = Q_REGS ? KSTEPS : 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
@@ -597,19 +619,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
   for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
-  unsigned qa[KSTEPS][4];   // the warp's Q A-fragments, one per k-step
+  // the warp's Q A-fragments, one per k-step: matrices (rows 0-7, k 0-7),
+  // (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) of its 16 rows
+  const T* q_frag = Qs + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8;
+  unsigned qa[QREG][4];
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
     // tile `it` (and Q) visible to all, and every warp done with tile
     // it - 1, whose stage the next copy refills while this one is computed
     __syncthreads();
     if (it + 1 < n_tiles) load_tile(it + 1);
-    if (it == 0) {
-      // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-      // (rows 8-15, k 8-15) of the warp's 16 rows
+    if constexpr (Q_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qa[kk], Qs + (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qa[kk], q_frag + kk * 16);
+      }
     }
     const int kt = k_start + it * BK;
     const T* Kt = KVs + (2 * (it & 1)) * BK * LD;
@@ -625,13 +649,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int qk = Q_REGS ? kk : 0;
+        if constexpr (!Q_REGS) ldmatrix_x4(qa[0], q_frag + kk * 16);
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           unsigned kb[4];
           ldmatrix_x4(kb, Kt + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[2 * np], qa[kk], kb[0], kb[1]);
-          mma_bf16_16816(s[2 * np + 1], qa[kk], kb[2], kb[3]);
+          mma_bf16_16816(s[2 * np], qa[qk], kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], qa[qk], kb[2], kb[3]);
         }
       }
 
@@ -740,12 +766,23 @@ constexpr int DEC_ROWS = 16;          // most rows (Sq·rep) a decode block hold
 
 // keys per split: the block's L / BK tiles are all in flight at once, one
 // shared-memory stage each.  256 keys where a K row is at most 128 bytes
-// (bf16 at D 64: a 72 KiB ring, two or three blocks an SM), else 128 (bf16 at D 80
-// and 128: rings of 44 and 68 KiB; fp32 up to 132 KiB).  A 256-key ring at
-// bf16 D 128 (136 KiB) left one block an SM and decoded slower on an H100
+// (bf16 at D 64: a 72 KiB ring, two or three blocks an SM), 128 where it
+// is at most 512 (bf16 at D 80, 128 and 256: rings of 44, 68 and 132 KiB;
+// fp32 up to 130 KiB), else 64 (fp32 at D 256: one 130 KiB stage, where
+// 128 keys would need 260 KiB).  A 256-key ring at bf16 D 128 (136 KiB)
+// left one block an SM and decoded slower on an H100
 template <typename T, int D>
 __host__ __device__ constexpr int dec_split() {
-  return D * sizeof(T) <= 128 ? 256 : 128;
+  return D * sizeof(T) <= 128 ? 256 : D * sizeof(T) <= 512 ? 128 : 64;
+}
+
+// the most rows (Sq·rep) a decode block holds at head dim D: 16, or 8 at
+// D 256, where 16 rows' O (16 x 8 dim pairs a lane) alone would be 128
+// fp32 registers a thread and the block would spill; 9-16 rows at D 256
+// take the chunk tiles, which compute the same function
+template <int D>
+__host__ __device__ constexpr int dec_rows() {
+  return D > 128 ? 8 : DEC_ROWS;
 }
 
 // shared memory: the ring of K and V stages in the input type (rows padded
@@ -800,8 +837,9 @@ __device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float (&f)[8]
 
 // One block per (split, KV head, batch row): the partial softmax of all
 // rows of the group over the split's keys.  RMAX >= Sq·rep is the rows the
-// registers hold (1, 4 or 16).  ws_o [B, KV, nsplit, rows, D] and ws_ml
-// [B, KV, nsplit, rows] take the partials of a group with several splits.
+// registers hold (1, 4 or 16; 1 or 8 at D 256).  ws_o [B, KV, nsplit,
+// rows, D] and ws_ml [B, KV, nsplit, rows] take the partials of a group
+// with several splits.
 template <typename T, int D, int RMAX, typename Addr>
 __global__ void __launch_bounds__(DEC_NT)
 flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -821,6 +859,7 @@ flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   static_assert(2 * HPC * EPC == D, "the two halves must score every dim in whole pieces");
   static_assert(32 * NPL * 2 >= D, "P·V must accumulate every dim");
   static_assert(RMAX == 1 || RMAX % 4 == 0, "P rows are read as float4");
+  static_assert(RMAX <= dec_rows<D>(), "more rows than the registers of this head dim hold");
   static_assert(static_cast<size_t>(DEC_NW) * RMAX * (D + 2) * sizeof(float) <=
                     dec_ring_bytes<T, D>(),
                 "the warps' partials must fit in the ring they reuse");
@@ -1104,9 +1143,10 @@ flash_fwd_decode_merge_kernel(T* __restrict__ out, const float* __restrict__ ws_
                               const float2* __restrict__ ws_ml, const int* __restrict__ q_offsets,
                               const int* __restrict__ q_lens, int Sq, int H, int KV, int causal,
                               int window, int k_len, int nsplit) {
-  constexpr int EPT = (DEC_ROWS * D + DEC_NT - 1) / DEC_NT;   // output elements a thread
-  __shared__ float wts[MERGE_CHUNK * DEC_ROWS];
-  __shared__ float m_row[DEC_ROWS], inv_row[DEC_ROWS];
+  constexpr int R = dec_rows<D>();                      // most rows of a group
+  constexpr int EPT = (R * D + DEC_NT - 1) / DEC_NT;    // output elements a thread
+  __shared__ float wts[MERGE_CHUNK * R];
+  __shared__ float m_row[R], inv_row[R];
   const int tid = threadIdx.x;
   const int g = blockIdx.x;
   const long long b = blockIdx.y;
@@ -1261,16 +1301,21 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out, void* 
                   long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
                   int H, Addr addr, int KV, float scale, int causal, int window, float softcap,
                   int k_len, cudaStream_t stream) {
-  // up to 16 rows per (b, KV head): the split-KV decode kernel, its
-  // registers sized for 1, 4 or 16 rows.  Chunks: bf16 on the tensor-core
-  // tile, fp32 on the 64-row tile with 4 lanes a row
+  // up to dec_rows<D> rows per (b, KV head) (16, or 8 at D 256): the
+  // split-KV decode kernel, its registers sized for 1, 4 or that many
+  // rows; at D 256 for 1 or 8 (ptxas spilled a 4-row instance there, at
+  // 96 registers).  Chunks: bf16 on the tensor-core tile, fp32 on the
+  // 64-row tile with 4 lanes a row
   const int rows = Sq * (H / KV);
+  constexpr int RTOP = dec_rows<D>();
 #define DECODE_INSTANCE(RMAX)                                                                 \
   return launch_decode<T, D, RMAX>(q, k, v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, \
                                    addr, KV, scale, causal, window, softcap, k_len, stream)
   if (rows == 1) DECODE_INSTANCE(1);
-  if (rows <= 4) DECODE_INSTANCE(4);
-  if (rows <= DEC_ROWS) DECODE_INSTANCE(DEC_ROWS);
+  if constexpr (RTOP > 8) {
+    if (rows <= 4) DECODE_INSTANCE(4);
+  }
+  if (rows <= RTOP) DECODE_INSTANCE(RTOP);
 #undef DECODE_INSTANCE
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_mma<D>(q, k, v, out, q_offsets, q_lens, B, Sq, H, addr, KV, scale, causal,
@@ -1281,8 +1326,9 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out, void* 
 }
 
 // the instances built: head dim 64 (llama3.2-1b), 80 (zamba2-2.7b's shared
-// attention) and 128 (qwen2-moe-a2.7b), each in fp32 and bf16; any other
-// (D, dtype) returns cudaErrorInvalidValue
+// attention), 128 (qwen2-moe-a2.7b, qwen3-14b, gemma2-27b) and 256
+// (gemma-7b), each in fp32 and bf16; any other (D, dtype) returns
+// cudaErrorInvalidValue
 template <typename Addr>
 int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, void* ws,
                       long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
@@ -1297,6 +1343,8 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, vo
   if (D == 80 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 80);
   if (D == 128 && dtype == 0) FLASH_INSTANCE(float, 128);
   if (D == 128 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 128);
+  if (D == 256 && dtype == 0) FLASH_INSTANCE(float, 256);
+  if (D == 256 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 256);
 #undef FLASH_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1306,13 +1354,14 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, vo
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  q_offsets
 // and q_lens are device int32 [B].  window <= 0 and softcap <= 0 disable
 // them.  ws is the decode kernel's fp32 scratch of ws_floats elements: a
-// call with Sq·H/KV <= 16 rows and k_len over one split (256 keys in bf16,
-// 128 in fp32) needs B·KV·ceil(k_len / split)·Sq·(H/KV)·(D + 2); any other
-// call may pass null.  Built for head dims 64 (llama3.2-1b), 80
-// (zamba2-2.7b) and 128 (qwen2-moe-a2.7b); other head dims come with the
-// configs that need them.  Returns a cudaError_t (0 = success); a shape the
-// kernels do not take, or too small a workspace, returns
-// cudaErrorInvalidValue without launching.
+// call with Sq·H/KV <= dec_rows<D> rows (16, or 8 at D 256) and k_len over
+// one split (dec_split: 256, 128 or 64 keys by the bytes of a K row) needs
+// B·KV·ceil(k_len / split)·Sq·(H/KV)·(D + 2); any other call may pass
+// null.  Built for head dims 64 (llama3.2-1b), 80 (zamba2-2.7b), 128
+// (qwen2-moe-a2.7b, qwen3-14b, gemma2-27b) and 256 (gemma-7b); other head
+// dims come with the configs that need them.  Returns a cudaError_t (0 =
+// success); a shape the kernels do not take, or too small a workspace,
+// returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* ws, long long ws_floats, const int* q_offsets,
                                    const int* q_lens, int B, int Sq, int H, int Sk, int KV, int D,

@@ -13,9 +13,10 @@ Layout is the model's: q
 (``q_len=0``) and the padding rows ``i >= q_lens[b]`` of a fused mixed
 batch — come out as exact zeros.  Scores are fp32 (optionally tanh
 soft-capped); the output has q's type.  On the card a call with at most
-16 rows (``Sq · H / KV``) per (batch row, KV head) — every decode step —
-runs the split-KV decode kernel, which cuts the key axis into fixed
-splits of :func:`_decode_split` keys and merges their partial softmaxes
+:func:`_decode_rows` rows (``Sq · H / KV``: 16, or 8 at head dim 256) per
+(batch row, KV head) — every decode step — runs the split-KV decode
+kernel, which cuts the key axis into fixed splits of :func:`_decode_split`
+keys and merges their partial softmaxes
 (fp32 scratch from :func:`_decode_workspace`); a bf16 chunk runs the tensor-core
 tile, which rounds the probabilities to bf16 for P·V; fp32 chunks and the
 decode kernel keep them in fp32, as the plain version does.
@@ -38,7 +39,7 @@ from . import _build
 
 # kernel launches since the counts were last reset (the CPU path never
 # counts): every dense and every paged call, and of those the calls that
-# ran the split-KV decode kernel (at most _DECODE_ROWS rows per KV head)
+# ran the split-KV decode kernel (at most _decode_rows rows per KV head)
 launches = 0
 paged_launches = 0
 decode_launches = 0
@@ -46,18 +47,29 @@ paged_decode_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernel is built for: llama3.2-1b's (64), zamba2-2.7b's
-# shared attention (80) and qwen2-moe-a2.7b's (128); the others come with
-# the slices of the configs that need them
-_HEAD_DIMS = (64, 80, 128)
+# shared attention (80), qwen2-moe-a2.7b's, qwen3-14b's and gemma2-27b's
+# (128) and gemma-7b's (256); the others come with the slices of the
+# configs that need them
+_HEAD_DIMS = (64, 80, 128, 256)
 # the decode kernel's most rows per (batch row, KV head)
 # (csrc/flash_attention.cu: DEC_ROWS)
 _DECODE_ROWS = 16
 
 
+def _decode_rows(head_dim: int) -> int:
+    """The most rows per (batch row, KV head) the decode kernel takes at
+    ``head_dim`` (csrc/flash_attention.cu: dec_rows): 16, or 8 at head dim
+    256, where 16 rows' output would not fit a thread's registers."""
+    return 8 if head_dim > 128 else _DECODE_ROWS
+
+
 def _decode_split(dtype: torch.dtype, head_dim: int) -> int:
     """Keys per split of the decode kernel (csrc/flash_attention.cu:
-    dec_split): 256 where a K row is at most 128 bytes, else 128."""
-    return 256 if head_dim * dtype.itemsize <= 128 else 128
+    dec_split): 256 where a K row is at most 128 bytes, 128 where it is at
+    most 512, else 64 (fp32 at head dim 256, whose 128-key ring would not
+    fit a block's shared memory)."""
+    row = head_dim * dtype.itemsize
+    return 256 if row <= 128 else 128 if row <= 512 else 64
 
 
 def attn_mask(q_pos, k_pos, causal: bool, window: Optional[int]) -> torch.Tensor:
@@ -174,7 +186,7 @@ def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
 
 def _is_decode(q: torch.Tensor, kv: int) -> bool:
     """Whether the card runs this call on the split-KV decode kernel."""
-    return q.shape[1] * (q.shape[2] // kv) <= _DECODE_ROWS
+    return q.shape[1] * (q.shape[2] // kv) <= _decode_rows(q.shape[3])
 
 
 def _decode_workspace(q: torch.Tensor, kv: int, k_len: int) -> Optional[torch.Tensor]:

@@ -144,13 +144,20 @@ class StageExecutor:
         st = self.stages[si]
         windows = [self._windows[i] for i in st.layer_ids]
         kernels = uses_kernels(cfg)
+        # gemma's embedding scale, made once on the stage's device in the
+        # activations' dtype: the scalar is rounded to that dtype first, as
+        # the reference rounds it
+        embed_scale = None
+        if st.first and cfg.scale_embed:
+            embed = self.stage_params[si]["embed"]
+            embed_scale = torch.tensor(cfg.d_model ** 0.5, dtype=embed.dtype, device=embed.device)
 
         def run(sp, x, positions, caches, cache_pos, q_lens=None, table=None):
             new_caches = []
             if st.first:
                 x = sp["embed"][x.to(torch.int64)]
-                if cfg.scale_embed:
-                    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+                if embed_scale is not None:
+                    x = x * embed_scale
             for j, layer_p in enumerate(sp["layers"]):
                 cache_j = caches[j] if caches is not None else None
                 if cache_j is not None and table is not None:

@@ -185,7 +185,7 @@ def test_rmsnorm_launch_shape(rows, d, dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "gemma2-27b", "llama3.2-1b", "zamba2-2.7b",
-                                  "qwen2-moe-a2.7b", "mamba2-130m"])
+                                  "qwen2-moe-a2.7b", "mamba2-130m", "gemma-7b"])
 def test_norms_per_forward_counts_the_wrappers_calls(arch, monkeypatch):
     """``chip_smoke.norms_per_forward`` is what one forward calls the
     RMSNorm wrapper: a ``.smoke()`` fused step through the kernel path."""
@@ -211,7 +211,7 @@ def test_norms_per_forward_counts_the_wrappers_calls(arch, monkeypatch):
     assert len(calls) == cs.norms_per_forward(cfg) > 0
     # and at full width the count the card run holds each forward to
     full = {"qwen3-14b": 161, "gemma2-27b": 185, "llama3.2-1b": 33, "zamba2-2.7b": 127,
-            "qwen2-moe-a2.7b": 49, "mamba2-130m": 49}
+            "qwen2-moe-a2.7b": 49, "mamba2-130m": 49, "gemma-7b": 57}
     assert cs.norms_per_forward(get_config(arch)) == full[arch]
 
 
@@ -223,6 +223,7 @@ CASES = [
     (1, 256, 256, 8, 8, 128, 64, 50.0),   # window + softcap (gemma2)
     (2, 96, 96, 4, 1, 80, 0, 0.0),        # MQA + unaligned dims
     (1, 128, 384, 2, 2, 64, 0, 0.0),      # long KV (q_offset)
+    (1, 64, 192, 4, 4, 256, 0, 0.0),      # gemma-7b's head dim, MHA, q_offset
 ]
 
 
@@ -333,6 +334,10 @@ def test_flash_wrapper_takes_plain_path_on_cpu():
 
 
 # ------------------------------------------------------- on the card (-m gpu)
+# the masks off, and gemma2's window 64 + softcap 50
+_WINDOW_SOFTCAP = [(None, None), (64, 50.0)]
+
+
 def _assert_within(out, ref):
     atol, rtol = (1e-4, 0.0) if out.dtype == torch.float32 else (1e-2, 1e-2)
     excess = ((out.float() - ref.float()).abs() - rtol * ref.float().abs()).max().item()
@@ -377,9 +382,9 @@ def test_flash_kernel_fused_chunk_on_card(cuda_device, dtype, window, softcap):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
 def test_flash_kernel_head_dims_on_card(cuda_device, d):
-    """The kernel is built for head dims 64, 80 and 128; the wrapper
+    """The kernel is built for head dims 64, 80, 128 and 256; the wrapper
     refuses the others."""
-    if d not in (64, 80, 128):
+    if d not in (64, 80, 128, 256):
         with pytest.raises(ValueError, match="head_dim"):
             _card_flash_case(cuda_device, torch.float32, sq=5, sk=200, b=2, depths=[0, 150],
                              q_lens=[5, 3], h=4, kv=2, d=d)
@@ -611,12 +616,44 @@ def test_flash_kernels_head_dim_80_on_card(cuda_device, dtype, paged, sq):
         assert not out[bi, n:].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("sq", [1, 64], ids=["decode", "fused_chunk"])
+@pytest.mark.parametrize("window,softcap", _WINDOW_SOFTCAP, ids=["plain", "window_softcap"])
+def test_flash_kernels_head_dim_256_on_card(cuda_device, dtype, paged, sq, window, softcap):
+    """gemma-7b's attention: head dim 256, 16 query and 16 KV heads,
+    decode rows (the split-KV decode kernel) and fused chunks (the fp32
+    tile's 32-key tiles, the bf16 tile's Q fragments read from shared
+    memory); paged also bit-equal to the dense kernel on the gathered
+    view."""
+    q_lens = [1] * 8 if sq == 1 else [64, 1, 0, 17, 64, 1, 17, 0]
+    rng = np.random.default_rng(256 + sq)
+    depths = [int(rng.integers(0, 2048 - n + 1)) for n in q_lens]
+    kw = dict(scale=256 ** -0.5, causal=True, window=window, softcap=softcap)
+    if not paged:
+        _card_flash_case(cuda_device, dtype, sq=sq, sk=2048, b=8, depths=depths,
+                         q_lens=q_lens, window=window, softcap=softcap, h=16, kv=16, d=256)
+        return
+    q, pk, pv, table, offs, lens = _card_paged_case(
+        cuda_device, dtype, P=64, depths=depths, q_lens=q_lens, sq=sq, h=16, kv=16, d=256)
+    out = fa.flash_attention_paged(q, pk, pv, table, offs, lens, **kw)
+    ref = fa.flash_attention_paged_plain(q, pk, pv, table, offs, lens, **kw)
+    dense = fa.flash_attention(q, fa.paged_view(pk, table).contiguous(),
+                               fa.paged_view(pv, table).contiguous(), offs, lens, **kw)
+    torch.cuda.synchronize(cuda_device)
+    _assert_within(out, ref)
+    assert torch.equal(out, dense)
+    for bi, n in enumerate(q_lens):
+        assert not out[bi, n:].any()
+
+
 
 # ------------------------------------------ the bf16 chunk tile (mma.sync)
 # attention heads (query, KV) and head dim of each served model
 _MODEL_HEADS = {"llama3.2-1b": (32, 8, 64), "zamba2-2.7b": (32, 32, 80),
-                "qwen2-moe-a2.7b": (16, 16, 128)}
-_WINDOW_SOFTCAP = [(None, None), (64, 50.0)]
+                "qwen2-moe-a2.7b": (16, 16, 128), "gemma-7b": (16, 16, 256),
+                "gemma2-27b": (32, 16, 128)}
 
 
 def _chunk_tile_model(q, k, v, q_offsets, q_lens, *, scale, window=None, softcap=None, bk=64):
@@ -863,8 +900,9 @@ def test_decode_split_model_short_queries(dtype):
 
 def test_decode_workspace_sizes():
     """The wrapper's scratch for the decode kernel: (D + 2) fp32 per row and
-    split (256 keys where a K row is at most 128 bytes, else 128), only for
-    calls of at most 16 rows whose keys span several splits."""
+    split (256 keys where a K row is at most 128 bytes, 128 where it is at
+    most 512, else 64), only for calls of at most 16 rows (8 at head dim
+    256) whose keys span several splits."""
     q = torch.zeros(8, 1, 32, 64, dtype=torch.bfloat16)
     ws = fa._decode_workspace(q, 8, 2048)
     assert ws.dtype == torch.float32 and ws.numel() == 8 * 8 * (2048 // 256) * 4 * 66
@@ -873,6 +911,18 @@ def test_decode_workspace_sizes():
     assert fa._decode_workspace(q128, 16, 2048).numel() == 8 * 16 * (2048 // 128) * 1 * 130
     assert fa._decode_workspace(q, 8, 256) is None                    # one split
     assert fa._decode_workspace(torch.zeros(8, 5, 32, 64), 8, 2048) is None   # 20 rows: a chunk
+    # head dim 256 (gemma-7b): 512-byte bf16 rows, 128 keys; 1024-byte fp32 rows, 64 keys
+    q256 = torch.zeros(8, 1, 16, 256, dtype=torch.bfloat16)
+    assert fa._decode_split(torch.bfloat16, 256) == 128
+    assert fa._decode_split(torch.float32, 256) == 64
+    assert fa._decode_workspace(q256, 16, 2048).numel() == 8 * 16 * (2048 // 128) * 1 * 258
+    assert fa._decode_workspace(q256.float(), 16, 2048).numel() == 8 * 16 * (2048 // 64) * 1 * 258
+    assert fa._decode_workspace(q256.float(), 16, 64) is None         # one 64-key split
+    # at most 8 rows a KV head: 8 queries run the decode kernel, 9 a chunk tile
+    assert fa._decode_rows(256) == 8 and fa._decode_rows(128) == 16
+    assert fa._decode_workspace(torch.zeros(2, 8, 16, 256), 16, 2048).numel() == (
+        2 * 16 * (2048 // 64) * 8 * 258)
+    assert fa._decode_workspace(torch.zeros(2, 9, 16, 256), 16, 2048) is None
 
 
 def _card_paged_from_dense(k, v, P, table_rng, depths, q_lens):
@@ -959,10 +1009,13 @@ def test_flash_decode_kernel_on_card(cuda_device, model, kv_layout, dtype, windo
 @pytest.mark.parametrize("kv_layout", ["dense", "P64"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,h,kv,d", [(5, 4, 2, 64), (4, 32, 8, 64), (16, 16, 16, 128),
-                                       (2, 32, 32, 80), (3, 4, 4, 80)])
+                                       (2, 32, 32, 80), (3, 4, 4, 80), (8, 16, 16, 256),
+                                       (3, 4, 4, 256), (12, 16, 16, 256)])
 def test_flash_decode_kernel_short_queries_on_card(cuda_device, sq, h, kv, d, dtype, kv_layout):
     """Sq > 1 with Sq·H/KV <= 16 rows (10, 16, 16, 2 and 3 rows: the
-    16-row and 4-row register instances), rows past q_len zero."""
+    16-row and 4-row register instances; at head dim 256, 8 and 3 rows on
+    its 8-row instance, and 12, past the decode kernel's 8, on a chunk
+    tile), rows past q_len zero."""
     _card_decode_case(cuda_device, dtype, h=h, kv=kv, d=d, sq=sq,
                       depths=[0, 255, 1900, 600], q_lens=[sq, sq - 1, 1, 0], kv_layout=kv_layout)
 

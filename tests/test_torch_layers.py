@@ -24,7 +24,11 @@ ATOL = 1e-5
 ATTN_CASES = [
     ("llama3.2-1b", "naive"), ("llama3.2-1b", "chunked"), ("llama3.2-1b", "pallas"),
     ("qwen3-14b", "pallas"), ("gemma2-27b", "chunked"), ("gemma2-27b", "pallas"),
+    ("gemma-7b", "pallas"), ("gemma-7b-hd256", "pallas"),
 ]
+# "<arch>-hd256": the arch's smoke config at head dim 256 (gemma-7b's),
+# whose q-dim (4 x 256) is not its d_model (128)
+_HD256 = "-hd256"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,6 +50,8 @@ def _close(t_out, j_out, atol=ATOL):
 
 
 def _cfgs(arch, **kw):
+    if arch.endswith(_HD256):
+        arch, kw["head_dim"] = arch[: -len(_HD256)], 256
     j = dataclasses.replace(get_config(arch).smoke(), **kw)
     t = dataclasses.replace(t_get_config(arch).smoke(), **kw)
     return j, t
@@ -153,7 +159,8 @@ def test_attention_dense_cache_scalar_pos(impl):
     b, s, smax, cp = 2, 5, 24, 7
     x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
     cache = {
-        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, 32)).astype(np.float32)
+        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, jcfg.resolved_head_dim)).astype(
+            np.float32)
         for k in ("k", "v")
     }
     pos = np.broadcast_to(np.arange(s, dtype=np.int32) + cp, (b, s)).copy()
@@ -180,7 +187,8 @@ def test_attention_ragged_fused_rows(arch, impl):
     q_lens = np.asarray([r[1] for r in rows], np.int32)
     x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
     cache = {
-        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, 32)).astype(np.float32)
+        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, jcfg.resolved_head_dim)).astype(
+            np.float32)
         for k in ("k", "v")
     }
     pos = cache_pos[:, None] + np.arange(s, dtype=np.int32)[None]
@@ -210,7 +218,8 @@ def test_attention_ragged_decode_without_q_lens(impl):
     cache_pos = np.asarray([0, 7, 15], np.int32)
     x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
     cache = {
-        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, 32)).astype(np.float32)
+        k: rng.standard_normal((b, smax, jcfg.n_kv_heads, jcfg.resolved_head_dim)).astype(
+            np.float32)
         for k in ("k", "v")
     }
     jo, jc, to, tc = _run_both(

@@ -20,6 +20,7 @@ from repro_torch.convert import init_params, params_from_jax
 from repro_torch.models import transformer as t_transformer
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serving.stage_executor import (
+    Stage as TStage,
     StageExecutor as TStageExecutor,
     stages_from_placement as t_stages_from_placement,
 )
@@ -35,9 +36,17 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+# "<arch>-hd256": the arch's smoke config at head dim 256 (gemma-7b's),
+# whose q-dim (4 x 256) is not its d_model (128)
+_HD256 = "-hd256"
+
+
 def _pair(arch, impl):
-    jcfg = dataclasses.replace(get_config(arch).smoke(), attention_impl=impl)
-    tcfg = dataclasses.replace(t_get_config(arch).smoke(), attention_impl=impl)
+    kw = dict(attention_impl=impl)
+    if arch.endswith(_HD256):
+        arch, kw["head_dim"] = arch[: -len(_HD256)], 256
+    jcfg = dataclasses.replace(get_config(arch).smoke(), **kw)
+    tcfg = dataclasses.replace(t_get_config(arch).smoke(), **kw)
     jparams = build_model(jcfg).init(jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
@@ -50,7 +59,7 @@ def _close(t, j, atol=ATOL):
 @pytest.mark.parametrize(
     "arch,impl",
     [("llama3.2-1b", "chunked"), ("llama3.2-1b", "pallas"), ("qwen3-14b", "pallas"),
-     ("gemma2-27b", "pallas")],
+     ("gemma2-27b", "pallas"), ("gemma-7b", "pallas"), ("gemma-7b-hd256", "pallas")],
 )
 def test_prefill_decode_fused_match_reference(arch, impl):
     jcfg, tcfg, jp, tp = _pair(arch, impl)
@@ -136,7 +145,37 @@ def test_init_params_layout_and_distributions():
 def test_executor_matches_reference_executor_two_stages():
     """A forced 2-stage placement (blocks split across two modeled
     devices) runs the same forward in both executors."""
-    jcfg, tcfg, jp, tp = _pair("llama3.2-1b", "pallas")
+    _two_stage_forward("llama3.2-1b")
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b-hd256", "gemma2-27b"])
+def test_executor_matches_reference_executor_gemma(arch):
+    """gemma's embedding scale, tied head and GeGLU (and gemma2's windows,
+    softcaps and post-norms) through both executors, two stages."""
+    _two_stage_forward(arch)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "gemma2-27b"])
+def test_executor_embedding_scale_is_the_reference_bits(arch):
+    """In bf16 the first stage scales the embeddings by sqrt(d_model)
+    rounded to bf16 first, as the reference does: the same bits."""
+    cfg = dataclasses.replace(t_get_config(arch).smoke(), dtype="bfloat16")
+    rng = np.random.default_rng(3)
+    embed = rng.standard_normal((cfg.vocab_size, cfg.d_model)).astype(np.float32)
+    tp = {"embed": torch.from_numpy(embed).to(torch.bfloat16), "layers": [],
+          "ln_final": torch.zeros(cfg.d_model)}
+    stage = TStage(device=torch.device("cpu"), layer_ids=[], first=True)
+    ex = TStageExecutor(cfg, tp, [stage])
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 5)).astype(np.int32)
+    x, _ = ex._stage_fn(0)(ex.stage_params[0], torch.from_numpy(toks), None, None, None)
+    jemb = jnp.asarray(embed, jnp.bfloat16)
+    ref = jnp.take(jemb, jnp.asarray(toks), axis=0) * jnp.asarray(cfg.d_model ** 0.5, jnp.bfloat16)
+    assert x.dtype == torch.bfloat16
+    np.testing.assert_array_equal(x.float().numpy(), np.asarray(ref, np.float32))
+
+
+def _two_stage_forward(arch):
+    jcfg, tcfg, jp, tp = _pair(arch, "pallas")
     graph = transformer_graph(jcfg, seq_len=32, granularity="block")
     order = graph.topo_order()
     placement = {nid: (0 if i < 2 else 1) for i, nid in enumerate(order)}

@@ -156,6 +156,27 @@ def test_paged_flash_plain_matches_pallas(P, window, softcap):
     torch.testing.assert_close(fa.flash_attention_paged_plain(*args, **kw), out, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (9, 30.0)])
+def test_paged_flash_plain_matches_pallas_head_dim_256(window, softcap):
+    """gemma-7b's head dim (256, no GQA) through the page table, pages of
+    16 tokens, against the Pallas paged kernel in interpret mode (1e-5)."""
+    q, pk, pv, table, offs, lens = _flash_case(256, 16, h=4, kv=4, d=256)
+    sq = q.shape[1]
+    scale = 1.0 / np.sqrt(256)
+    q_pos = offs[:, None] + np.arange(sq, dtype=np.int32)[None]
+    ref = j_ops.flash_attention_paged(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
+        jnp.asarray(q_pos), jnp.asarray(lens), scale=scale, causal=True,
+        window=window or None, softcap=softcap or None, interpret=True,
+    )
+    args = [torch.from_numpy(a) for a in (q, pk, pv, table, offs, lens)]
+    out = fa.flash_attention_paged_plain(*args, scale=scale, causal=True, window=window or None,
+                                         softcap=softcap or None)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    for bi, n in enumerate(lens):
+        assert not out[bi, n:].any(), f"row {bi} leaked past q_len={n}"
+
+
 def test_paged_flash_wrapper_takes_plain_path_on_cpu():
     q, pk, pv, table, offs, lens = _flash_case(3, 16)
     args = [torch.from_numpy(a) for a in (q, pk, pv, table, offs, lens)]

@@ -67,8 +67,8 @@ RMS_SHAPES = (
     (8, 1536, "mamba2-130m d_inner decode"),
     (512, 2560, "zamba2-2.7b width chunk"),
     (8, 2560, "zamba2-2.7b width decode"),
-    (512, 3072, "gemma-7b width, checked only"),
-    (512, 4608, "gemma2-27b width, checked only"),
+    (512, 3072, "gemma-7b width chunk"),
+    (512, 4608, "gemma2-27b width chunk"),
 )
 
 
