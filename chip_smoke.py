@@ -33,7 +33,14 @@ Phases (any failure exits non-zero; nothing is caught):
    leave a block's last row groups idle and at one row, all on the rows
    kernel, and on the generic kernel at widths no instance covers and at
    a misaligned x or w (which kernel ran is counted; two launches must be
-   bit-identical);
+   bit-identical); ``[check] flash verify rows``: a speculative round's
+   verify rows (q_len = Sq > 1 at decode depth: depths 0, split-1, split
+   and 2048-Sq, beside a decode row and an idle row) at the six served head
+   configurations, Sq from 2 to the decode kernel's last width and the
+   first chunk-tile width, fp32 and bf16, plain and window 64 + softcap
+   50, dense and paged (P 16, 64): the route asserted by the launch
+   counters, within tolerance, bit-identical twice, zeros past q_len,
+   paged bit-equal to dense;
 4. serve full-width llama3.2-1b (bf16, random weights from a seed) through
    ``repro_torch.launch.serve.main`` with its defaults, then through
    ``ServingEngine`` with 16 requests of 100–600 prompt tokens, 8 slots,
@@ -105,7 +112,25 @@ Phases (any failure exits non-zero; nothing is caught):
    same argmax except at a bf16 tie of at most two bf16 steps); zamba2
    paged (P = 64) gives dense's greedy tokens.  ``[trace-ssm]``: a
    profiler trace of 16 zamba2 driver steps;
-9. time each kernel, its plain version and one PyTorch library call for
+9. speculation (llama3.2-1b, then the SSM families): ``[parity-spec]``,
+   fp32 full width, 8 slots, max_len 2048, 16 requests of 100–600 prompt
+   tokens, 32 new: the speculative engine's tokens equal the plain
+   engine's at k = 3 ([8, 4] verify rows on the decode kernel) and k = 4
+   (the chunk tile), dense and paged (P 64), with a draft of the target's
+   weights + 2e-3 N(0, 1) (acceptance partial), and with the target as
+   its own draft (every proposal accepted); every target and draft
+   forward is held to its RMSNorm and flash launches and route.
+   ``[serve-spec]``: the serve CLI with ``--draft llama3.2-1b
+   --spec-tokens 4``, then bf16 [serve] traffic through a plain and a
+   speculative engine (k = 4, a draft of the target's first 2 layers,
+   proposals pinned at acceptance 0.75 by an oracle hook on the plain
+   run's tokens), three runs each in turns: gen tok/s, acceptance,
+   tokens a round, the share of tokens equal to the plain run.
+   ``[trace-spec]``: a profiler trace of 16 speculative steps.
+   ``[parity-spec-ssm]``: ``spec_generate`` in fp32 equal to sequential
+   greedy for mamba2-130m (noise 2e-3 and 0.5: zero acceptance) and
+   zamba2-2.7b (12 layers, paged P 64);
+10. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
@@ -123,7 +148,10 @@ Phases (any failure exits non-zero; nothing is caught):
    fused-chunk shapes and at mamba2's multi-chunk prefill (no single
    PyTorch call computes the scan); RMSNorm back to back at every shape of
    ``RMS_SHAPES``, beside ``F.rms_norm``, a copy and a read of the same
-   bytes and an empty kernel's time (the floor), naming the instance.
+   bytes and an empty kernel's time (the floor), naming the instance; the
+   verify rows [8, 4] and [8, 5] at D 64, dense and paged.
+
+Each phase's wall time is printed as a ``[phase]`` line.
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card; without one it
@@ -157,6 +185,7 @@ sys.path.insert(0, str(SRC))
 sys.path.insert(0, str(ROOT))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.costmodel import expected_accepted_tokens  # noqa: E402
 from repro_torch.core.devices import h100_cluster  # noqa: E402
 from repro_torch.core.placement import PlanConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -829,6 +858,105 @@ def phase_check_decode(dev) -> dict:
     return errs
 
 
+# the head configurations served, for the verify-row checks: (tag, arch)
+VERIFY_HEADS = ((ZAMBA, "d80"), (LLAMA, "d64"), (MOE, "d128"), (QWEN3, "d128g5"),
+                (GEMMA2, "d128g2"), (GEMMA, "d256"))
+
+
+def verify_sqs(hk) -> list:
+    """The verify widths Sq to check at heads ``hk``: 2 up to the last on
+    the decode kernel (``Sq · H / KV <= fa._decode_rows(D)``), and the first
+    that goes to a chunk tile."""
+    last = fa._decode_rows(hk["d"]) // (hk["h"] // hk["kv"])
+    return list(range(2, last + 2))
+
+
+def phase_check_verify(dev) -> dict:
+    """Verify rows (``q_len = Sq > 1`` at decode depth, as a speculative
+    round feeds them) against the plain version at each served head
+    configuration, fp32 and bf16, plain and with window 64 + softcap 50:
+    each call mixes four verify rows (depths 0, split-1, split and
+    2048-Sq, the last query on key 2047), a decode row (q_len 1) and an
+    idle row (q_len 0).  The launch counters must show the route the
+    wrapper's rule predicts (the decode kernel up to ``fa._decode_rows``
+    rows per KV head, a chunk tile past it); every call is within
+    tolerance of the plain version, bit-equal to a second launch and exact
+    zeros past q_len; paged at P 16 and 64 is bit-equal to the dense kernel
+    on the gathered view, with the trash page's garbage and with it
+    zeroed."""
+    errs = {}
+    n_calls = 0
+    for arch, tag in VERIFY_HEADS:
+        hk = HEADS[arch]
+        rep = hk["h"] // hk["kv"]
+        for dtype in (torch.float32, torch.bfloat16):
+            split = fa._decode_split(dtype, hk["d"])
+            for extra in ({}, {"window": 64, "softcap": 50.0}):
+                worst, routes = 0.0, []
+                for sq in verify_sqs(hk):
+                    on_decode = sq * rep <= fa._decode_rows(hk["d"])
+                    depths = [0, split - 1, split, 2048 - sq, 1000, 500]
+                    lens = [sq] * 4 + [1, 0]
+                    case = f"{tag}_verify_sq{sq}" + ("_window_softcap" if extra else "")
+                    inp = flash_inputs(dev, dtype, sq=sq, depths=depths, q_lens=lens, **hk)
+                    before = (fa.launches, fa.decode_launches)
+                    out = run_flash(fa.flash_attention, inp, extra)
+                    again = run_flash(fa.flash_attention, inp, extra)
+                    ref = run_flash(fa.flash_attention_plain, inp, extra)
+                    torch.cuda.synchronize(dev)
+                    ran = (fa.launches - before[0], fa.decode_launches - before[1])
+                    if ran != (2, 2 if on_decode else 0):
+                        raise AssertionError(f"flash {case}: launches (all, decode) {ran}, the "
+                                             f"rule gives the {'decode' if on_decode else 'chunk'}"
+                                             " route")
+                    err = within(out, ref)
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"flash {case}: two launches differ")
+                    for bi, n in enumerate(lens):
+                        if out[bi, n:].any():
+                            raise AssertionError(f"flash {case}: row {bi} leaked past q_len={n}")
+                    errs[("flash_attention", case, dtype)] = err
+                    worst = max(worst, err)
+                    for P in (16, 64):
+                        pin = paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=sq,
+                                           **hk)
+                        before = (fa.paged_launches, fa.paged_decode_launches)
+                        out = run_paged(fa.flash_attention_paged, pin, extra)
+                        again = run_paged(fa.flash_attention_paged, pin, extra)
+                        ran = (fa.paged_launches - before[0], fa.paged_decode_launches - before[1])
+                        ref = run_paged(fa.flash_attention_paged_plain, pin, extra)
+                        dense = run_flash(fa.flash_attention, gathered(pin), extra)
+                        pin["pool_k"][-1] = 0
+                        pin["pool_v"][-1] = 0
+                        clean = run_paged(fa.flash_attention_paged, pin, extra)
+                        torch.cuda.synchronize(dev)
+                        if ran != (2, 2 if on_decode else 0):
+                            raise AssertionError(f"flash_paged {case} P{P}: launches (all, "
+                                                 f"decode) {ran}")
+                        p_err = within(out, ref)
+                        if not (torch.equal(out, dense) and torch.equal(out, clean)
+                                and torch.equal(out, again)):
+                            raise AssertionError(f"flash_paged {case} P{P}: not bit-equal to the "
+                                                 "dense kernel, to the clean trash page, or to "
+                                                 "itself")
+                        for bi, n in enumerate(lens):
+                            if out[bi, n:].any():
+                                raise AssertionError(f"flash_paged {case} P{P}: row {bi} leaked "
+                                                     f"past q_len={n}")
+                        errs[("flash_attention_paged", f"{case}_P{P}", dtype)] = p_err
+                        worst = max(worst, p_err)
+                    n_calls += 13
+                    routes.append(f"{sq}:{'decode' if on_decode else 'chunk'}")
+                log(f"[check] flash verify rows {tag} (H {hk['h']} / KV {hk['kv']}, D {hk['d']}) "
+                    f"{str(dtype)[6:]}{' window 64 + softcap 50' if extra else ''}: Sq "
+                    f"{' '.join(routes)}; rows at depths 0/{split - 1}/{split}/2048-Sq + a decode "
+                    f"and an idle row; dense and paged P16/P64 max abs err {worst:.3e}; route by "
+                    "the counters, two launches bit-identical, zeros past q_len, paged bit-equal "
+                    "to dense (garbage and zeroed trash page)")
+    log(f"[check] flash verify rows: {n_calls} calls at {len(VERIFY_HEADS)} head configurations")
+    return errs
+
+
 def full_cfg(arch=LLAMA, **kw):
     kw = dict(dict(scan_layers=False, remat=False, attention_impl="pallas"), **kw)
     return dataclasses.replace(get_config(arch), **kw)
@@ -1317,6 +1445,391 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
     return {"cli": cli_counts, "per_forward": per_fwd, "tok_s": tok_s,
             "dense_tok_s": dense_tok_s}
 
+# -------------------------------------------------------------- speculation
+SPEC_K = (3, 4)          # llama verify rows: [8, 4] on the decode kernel, [8, 5] on a chunk tile
+SPEC_NOISE = 2e-3        # the noisy draft: the target's weights + SPEC_NOISE · N(0, 1)
+SPEC_ALPHA = 0.75        # [serve-spec]'s pinned acceptance
+SPEC_SERVE_K = 4
+SPEC_TRUTH_PASSES = 8    # pinned_truth's limit
+DRAFT_LAYERS = 2         # [serve-spec]'s draft: the target's first 2 layers
+
+
+class ForwardLog:
+    """Each forward of one stage executor, as (S, the kernel launches it
+    made): the executor synchronizes the card after every stage, so the
+    counts between the call's start and end are its own."""
+
+    def __init__(self, executor):
+        self.steps = []
+        fwd = executor.forward
+
+        def counted(tokens, *args, **kw):
+            before = counts()
+            out = fwd(tokens, *args, **kw)
+            after = counts()
+            self.steps.append((int(tokens.shape[1]), {k: after[k] - before[k] for k in after}))
+            return out
+
+        executor.forward = counted
+
+
+def spec_path(cfg, k, paged) -> tuple:
+    """The kernels a speculative llama run must launch: RMSNorm, the dense
+    flash kernel and its decode kernel (the draft's dense caches: [8, 64]
+    catch-ups and [8, 1] proposals), and for a paged target the paged
+    kernel, on the decode kernel when [8, k+1] verify rows take it."""
+    out = ("rmsnorm", "flash_attention", "flash_attention_decode")
+    if paged:
+        on_decode = (k + 1) * (cfg.n_heads // cfg.n_kv_heads) <= fa._decode_rows(
+            cfg.resolved_head_dim)
+        out += ("flash_attention_paged",) + (("flash_attention_paged_decode",) if on_decode
+                                             else ())
+    return out
+
+
+def forward_shapes(steps) -> dict:
+    """How many forwards ran at each S."""
+    out = {}
+    for s, _ in steps:
+        out[s] = out.get(s, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def verify_launches(steps, k, paged) -> int:
+    """Flash launches of the target's verify forwards, [slots, k+1]."""
+    name = "flash_attention_paged" if paged else "flash_attention"
+    return sum(d[name] for s, d in steps if s == k + 1)
+
+
+def map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tensors(v, fn) for v in tree]
+    return fn(tree)
+
+
+def noisy_copy(params, scale, seed, dev):
+    """A draft correlated with the target: every float tensor of ``params``
+    plus ``scale · N(0, 1)``, drawn in order from a generator seeded
+    ``seed`` (as tests/test_spec_decode.py perturbs the reference's)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return map_tensors(params, lambda t: (t.float() + scale * torch.randn(
+        t.shape, generator=g, device=dev)).to(t.dtype) if t.is_floating_point() else t)
+
+
+def truncated_draft(cfg, params, n_layers):
+    """A draft that shares the target's tensors: its embedding, its first
+    ``n_layers`` layers, its final norm and head (nothing copied)."""
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dp = {"embed": params["embed"], "layers": params["layers"][:n_layers],
+          "ln_final": params["ln_final"]}
+    if not cfg.tie_embeddings:
+        dp["lm_head"] = params["lm_head"]
+    return dcfg, dp
+
+
+def make_spec_engine(cfg, params, dev, dcfg, dparams, *, k, slots=8, max_len=2048,
+                     page_tokens=None, method="moirai"):
+    return ServingEngine(
+        cfg, params, h100_cluster(1), devices=[dev], slots=slots, max_len=max_len,
+        plan_cfg=PlanConfig(method=method, time_limit=20.0, objective="throughput",
+                            serving_slots=slots, spec_tokens=k, kv_page_tokens=page_tokens),
+        eos_id=-1, draft_cfg=dcfg, draft_params=dparams,
+    )
+
+
+def spec_requests(cfg, *, n=16, max_new=32, seed=SEED, rid0=0):
+    """``n`` requests of 100-600 seeded prompt tokens, as :func:`drive`'s."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=rid0 + i, prompt=rng.integers(1, cfg.vocab_size, size=int(m)).tolist(),
+                    max_new_tokens=max_new)
+            for i, m in enumerate(rng.integers(100, 601, size=n))]
+
+
+def oracle_hook(continuations, alpha, seed):
+    """Proposals pinned at per-token acceptance ``alpha`` (the logic of
+    benchmarks/spec_decode.py's oracle draft): the true continuation, each
+    token replaced with probability ``1 - alpha`` by one the target cannot
+    predict there; requests without a continuation keep the draft's own.
+    Each decision is drawn from a generator keyed on (seed, request,
+    position), so a run's decisions follow from its truth alone, not from
+    the order the engine asks in.  A position's decision counts once: it is
+    proposed again only after an earlier proposal of its round was
+    rejected, which voids it there."""
+
+    def hook(req, proposals):
+        if req.rid not in continuations:
+            return proposals
+        cont = continuations[req.rid]
+        done = len(req.out_tokens)
+        out = []
+        for j in range(len(proposals)):
+            true_tok = cont[done + j] if done + j < len(cont) else 0
+            keep = np.random.default_rng([seed, req.rid, done + j]).random() < alpha
+            out.append(true_tok if keep else (true_tok + 1) % 500)
+        return out
+
+    return hook
+
+
+def pinned_truth(plain, spec, mk, dev, tag):
+    """The oracle's truth for the requests ``mk()`` makes: the tokens the
+    speculative engine itself commits under it.  The plain engine's tokens
+    are only a first guess in bf16: a verify row runs another kernel route
+    than a decode row, a flipped argmax sends the run off the guess, and
+    every later proposal of that request is then rejected (acceptance far
+    below ``SPEC_ALPHA``).  So the spec engine serves under the guess, its
+    tokens become the next guess, until a run commits exactly its guess.
+    Each pass reproduces the last one up to the step where that one left
+    its guess, so the first such step moves later every pass.  Returns the
+    truth and the plain engine's tokens."""
+    reqs = mk()
+    serve_reqs(plain, reqs, dev)
+    first = [list(r.out_tokens) for r in reqs]
+    truth = {r.rid: list(r.out_tokens) for r in reqs}
+    for it in range(1, SPEC_TRUTH_PASSES + 1):
+        spec._spec_stats = {}
+        spec._proposal_hook = oracle_hook(truth, SPEC_ALPHA, SEED)
+        reqs = mk()
+        serve_reqs(spec, reqs, dev)
+        got = {r.rid: list(r.out_tokens) for r in reqs}
+        same = sum(x == y for r in reqs for x, y in zip(got[r.rid], truth[r.rid]))
+        log(f"{tag} truth pass {it}: {same}/{sum(map(len, got.values()))} spec tokens equal "
+            f"to the guess, {spec_line(spec)}")
+        if got == truth:
+            return truth, first
+        truth = got
+    raise AssertionError(f"{tag}: the spec engine left its own tokens after "
+                         f"{SPEC_TRUTH_PASSES} passes")
+
+
+def check_pinned(eng, alpha, k, what) -> dict:
+    """The observed tokens a round against ``expected_accepted_tokens``:
+    a round commits T = min(G, k) + 1 tokens, G the leading accepted
+    proposals (P(T = t) = alpha^(t-1) (1 - alpha) for t <= k, alpha^k for
+    k + 1); the mean of ``rounds`` rounds must lie within 4 standard errors."""
+    rep = eng.speculation_report()["classes"]["default"]
+    p = [alpha ** (t - 1) * (1 - alpha) for t in range(1, k + 1)] + [alpha ** k]
+    mean = sum(t * q for t, q in zip(range(1, k + 2), p))
+    sd = math.sqrt(sum((t - mean) ** 2 * q for t, q in zip(range(1, k + 2), p)))
+    want = expected_accepted_tokens(alpha, k)
+    tol = 4 * sd / math.sqrt(rep["rounds"])
+    if abs(rep["tokens_per_round"] - want) > tol:
+        raise AssertionError(f"{what}: {rep['tokens_per_round']:.3f} tokens a round over "
+                             f"{rep['rounds']} rounds, expected {want:.3f} +- {tol:.3f} at "
+                             f"a = {alpha}")
+    return dict(rep, expected_tokens_per_round=want, tolerance=tol)
+
+
+def spec_line(eng) -> str:
+    rep = eng.speculation_report()["classes"]["default"]
+    return (f"{rep['rounds']} rounds, acceptance {rep['acceptance_rate']:.3f}, "
+            f"{rep['tokens_per_round']:.3f} tokens a round")
+
+
+def phase_parity_spec(dev) -> dict:
+    """fp32, full-width llama3.2-1b (16 layers), 8 slots, max_len 2048, 16
+    requests of 100-600 prompt tokens, 32 new each: the speculative
+    engine's tokens equal the plain engine's at k = 3 (verify rows on the
+    decode kernel) and k = 4 (the chunk tile), dense and paged (P 64), with
+    a noisy draft of the same size (partial acceptance required); with the
+    target as its own draft, every proposal is accepted (k + 1 tokens a
+    round).  Target and draft forwards are held to their launches each.
+    The engines plan with ETF: on one card every method places both models
+    on it, and the joint Moirai solve over two 16-layer models runs to its
+    20 s limit ([serve-spec] and the CLI keep Moirai)."""
+    tag = "[parity-spec]"
+    cfg = full_cfg(LLAMA, dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    draft = noisy_copy(params, SPEC_NOISE, SEED + 7, dev)
+    mk = lambda: spec_requests(cfg, seed=SEED + 1)  # noqa: E731
+    verify, plain = {}, {}
+    for paged in (False, True):
+        kv = "paged P64" if paged else "dense"
+        eng = (make_paged_engine(cfg, params, dev, slots=8, max_len=2048, page_tokens=64)
+               if paged else make_engine(cfg, params, dev, slots=8, max_len=2048))
+        reqs = mk()
+        reset_counts()
+        wall = serve_reqs(eng, reqs, dev)
+        require(counts(), path(LLAMA, paged), f"fp32 plain {kv}")
+        plain[paged] = [r.out_tokens for r in reqs]
+        log(f"{tag} fp32 plain engine {kv}: {wall:.2f}s, launches {counts()}")
+        del eng
+        for k in SPEC_K:
+            eng = make_spec_engine(cfg, params, dev, cfg, draft, k=k,
+                                   page_tokens=64 if paged else None, method="etf")
+            tlog, dlog = ForwardLog(eng.executor), ForwardLog(eng._draft_executor)
+            reqs = mk()
+            reset_counts()
+            wall = serve_reqs(eng, reqs, dev)
+            got = counts()
+            require(got, spec_path(cfg, k, paged), f"fp32 spec {kv} k={k}")
+            check_forwards(tlog.steps, cfg, f"spec {kv} k={k} target", paged=paged)
+            check_forwards(dlog.steps, cfg, f"spec {kv} k={k} draft")
+            verify[(paged, k)] = verify_launches(tlog.steps, k, paged)
+            if not verify[(paged, k)]:
+                raise AssertionError(f"spec {kv} k={k}: no [8, {k + 1}] verify forward ran")
+            rep = eng.speculation_report()["classes"]["default"]
+            if [r.out_tokens for r in reqs] != plain[paged]:
+                diff = sum(a != b for a, b in zip([r.out_tokens for r in reqs], plain[paged]))
+                raise AssertionError(f"spec {kv} k={k}: fp32 tokens differ from the plain "
+                                     f"engine's in {diff} of 16 requests")
+            if not 0 < rep["acceptance_rate"] < 1:
+                raise AssertionError(f"spec {kv} k={k}: acceptance not partial: {rep}")
+            route = "decode kernel" if (k + 1) * 4 <= fa._decode_rows(64) else "chunk tile"
+            log(f"{tag} fp32 spec {kv} k={k}, draft = target + {SPEC_NOISE} N(0,1): {wall:.2f}s, "
+                f"{spec_line(eng)}; tokens equal to the plain engine's (16 x 32); target "
+                f"forwards by S {forward_shapes(tlog.steps)}, draft {forward_shapes(dlog.steps)}; "
+                f"verify [8, {k + 1}] on the {route}: {verify[(paged, k)]} flash launches; every "
+                f"forward {norms_per_forward(cfg)} RMSNorms on the rows kernel and {cfg.n_layers} "
+                f"flash calls on the route the rule gives; launches {got}")
+            del eng
+            free_card()
+    k = SPEC_K[-1]
+    eng = make_spec_engine(cfg, params, dev, cfg, params, k=k, method="etf")
+    reqs = mk()
+    wall = serve_reqs(eng, reqs, dev)
+    rep = eng.speculation_report()["classes"]["default"]
+    if [r.out_tokens for r in reqs] != plain[False]:
+        raise AssertionError("self-draft spec: fp32 tokens differ from the plain engine's")
+    if not (rep["acceptance_rate"] == 1.0 and rep["tokens_per_round"] == k + 1):
+        raise AssertionError(f"self-draft spec: not every proposal accepted: {rep}")
+    log(f"{tag} fp32 self draft k={k}: {wall:.2f}s, {spec_line(eng)}; tokens equal to the plain "
+        "engine's")
+    del eng, params, draft
+    free_card()
+    return verify
+
+
+def phase_serve_spec(dev) -> dict:
+    """bf16, full-width llama3.2-1b: the CLI with ``--draft llama3.2-1b
+    --spec-tokens 4``, then [serve]'s traffic (8 slots, max_len 2048, 16
+    requests of 100-600 prompt tokens, 32 new) through a plain engine and a
+    speculative one (k = 4, a draft of the target's first 2 layers,
+    embedding, final norm and head), three runs each in turns; the
+    proposals pinned at acceptance SPEC_ALPHA by an oracle hook on the
+    spec engine's own tokens (:func:`pinned_truth`), each run held to
+    them and its tokens a round to ``expected_accepted_tokens``.  Then
+    [trace-spec]."""
+    tag = "[serve-spec]"
+    cfg = full_cfg(LLAMA)
+    log(f"{tag} repro_torch.launch.serve.main(['--arch', '{LLAMA}', '--draft', '{LLAMA}', "
+        "'--spec-tokens', '4'])")
+    reset_counts()
+    t0 = time.perf_counter()
+    engine, reqs = serve.main(["--arch", LLAMA, "--draft", LLAMA, "--spec-tokens", "4"])
+    torch.cuda.synchronize(dev)
+    cli = counts()
+    rep = engine.speculation_report()["classes"]
+    log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli}, speculation "
+        f"{rep}")
+    require(cli, DENSE_PATH, "spec serve CLI")
+    require_per_forward(cli, cfg, "spec serve CLI")
+    if not (rep and all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs)):
+        raise AssertionError("the spec CLI left requests unserved or ran no round")
+    del engine
+    free_card()
+
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    dcfg, dparams = truncated_draft(cfg, params, DRAFT_LAYERS)
+    plain = make_engine(cfg, params, dev, slots=8, max_len=2048)
+    t0 = time.perf_counter()
+    spec = make_spec_engine(cfg, params, dev, dcfg, dparams, k=SPEC_SERVE_K)
+    res = spec._spec_result
+    log(f"{tag} spec engine built in {time.perf_counter() - t0:.1f}s: joint placement "
+        f"{res.method} ({res.status}) over {len(spec._spec_merged.nodes)} nodes (target "
+        f"{len(spec.graph.nodes)}, draft {len(spec._draft_graph.nodes)}); card memory "
+        f"allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    mk = lambda: spec_requests(cfg)  # noqa: E731
+    truth, first = pinned_truth(plain, spec, mk, dev, tag)
+    tlog, dlog = ForwardLog(spec.executor), ForwardLog(spec._draft_executor)
+    plain_tok_s, spec_tok_s = [], []
+    out = {}
+    for rep_i in range(ENGINE_REPEATS):
+        reqs = mk()
+        wall = serve_reqs(plain, reqs, dev)
+        plain_tok_s.append(sum(len(r.out_tokens) for r in reqs) / wall)
+        spec._spec_stats = {}
+        spec._proposal_hook = oracle_hook(truth, SPEC_ALPHA, SEED)
+        tlog.steps.clear()
+        dlog.steps.clear()
+        reqs = mk()
+        reset_counts()
+        wall = serve_reqs(spec, reqs, dev)
+        got = counts()
+        require(got, DENSE_PATH, "spec engine")
+        check_forwards(tlog.steps, cfg, "spec engine target")
+        check_forwards(dlog.steps, dcfg, "spec engine draft")
+        for r in reqs:
+            if not (r.done and len(r.out_tokens) == 32
+                    and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
+                raise AssertionError(f"request {r.rid} not served right: {r.out_tokens}")
+        if any(r.out_tokens != truth[r.rid] for r in reqs):
+            raise AssertionError(f"spec run {rep_i + 1} left the pinned truth")
+        rep = check_pinned(spec, SPEC_ALPHA, SPEC_SERVE_K, f"spec run {rep_i + 1}")
+        toks = sum(len(r.out_tokens) for r in reqs)
+        spec_tok_s.append(toks / wall)
+        same = sum(x == y for r, b in zip(reqs, first) for x, y in zip(r.out_tokens, b))
+        if rep_i == 0:
+            out = {"verify_launches": verify_launches(tlog.steps, SPEC_SERVE_K, False),
+                   "spec": rep, "target_shapes": forward_shapes(tlog.steps),
+                   "draft_shapes": forward_shapes(dlog.steps)}
+        log(f"{tag} run {rep_i + 1}/{ENGINE_REPEATS}: plain {plain_tok_s[-1]:.1f} gen tok/s; "
+            f"spec k={SPEC_SERVE_K} {spec_tok_s[-1]:.1f} gen tok/s ({toks} tokens in {wall:.3f}s, "
+            f"{len(tlog.steps)} target forwards by S {forward_shapes(tlog.steps)}, draft "
+            f"{forward_shapes(dlog.steps)}), {spec_line(spec)} (expected "
+            f"{rep['expected_tokens_per_round']:.3f} +- {rep['tolerance']:.3f} at a = "
+            f"{SPEC_ALPHA}); tokens equal to the pinned truth; to the plain bf16 run's "
+            f"{same}/{16 * 32}; launches {got}")
+    med_p, med_s = float(np.median(plain_tok_s)), float(np.median(spec_tok_s))
+    log(f"{tag} gen tok/s over {ENGINE_REPEATS} runs in turns: plain "
+        f"{[round(x, 1) for x in plain_tok_s]} (median {med_p:.1f}), spec "
+        f"{[round(x, 1) for x in spec_tok_s]} (median {med_s:.1f}), spec / plain "
+        f"{med_s / med_p:.3f} at acceptance {out['spec']['acceptance_rate']:.3f}, "
+        f"{out['spec']['tokens_per_round']:.3f} tokens a round; every target forward "
+        f"{norms_per_forward(cfg)} RMSNorms, draft {norms_per_forward(dcfg)}; host: {host_line()}")
+    phase_trace_spec(plain, spec, cfg, dev)
+    del plain, spec, params, dparams
+    free_card()
+    out.update(cli=cli, plain_tok_s=plain_tok_s, spec_tok_s=spec_tok_s)
+    return out
+
+
+def phase_trace_spec(plain, spec, cfg, dev) -> None:
+    """Where a speculative step's time goes: a profiler trace of 16 steps of
+    the spec engine on 8 new 300-token prompts (after one untraced step),
+    the oracle pinned on the spec engine's own tokens for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=300).tolist() for _ in range(8)]
+    mk = lambda: [Request(rid=1000 + i, prompt=p, max_new_tokens=64)  # noqa: E731
+                  for i, p in enumerate(prompts)]
+    truth, _ = pinned_truth(plain, spec, mk, dev, "[trace-spec]")
+    spec._proposal_hook = oracle_hook(truth, SPEC_ALPHA, SEED)
+    spec._spec_stats = {}
+    reqs = mk()
+    for r in reqs:
+        spec.submit(r)
+    spec.step()
+    torch.cuda.synchronize(dev)
+    logs = [ForwardLog(spec.executor), ForwardLog(spec._draft_executor)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(16):
+            spec.step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    report_trace(prof, wall, "[trace-spec]",
+                 f"16 speculative engine steps (target forwards by S "
+                 f"{forward_shapes(logs[0].steps)}, draft {forward_shapes(logs[1].steps)}; "
+                 f"{spec_line(spec)})")
+    spec.run_until_drained()
+    if any(r.out_tokens != truth[r.rid] for r in reqs):
+        raise AssertionError("[trace-spec]: the traced run left the pinned truth")
+
+
 # ---------------------------------------------------------------- SSM/hybrid
 # the SSD heads of each model: (H, P, N, G); chunk 128 for both
 SSD_HEADS = {MAMBA: dict(h=24, p=64, n=128, g=1), ZAMBA: dict(h=80, p=64, n=64, g=1)}
@@ -1498,22 +2011,29 @@ class FusedDriver:
         return self.out
 
 
-def check_forwards(steps, cfg, what, *, kernels=True) -> None:
+def check_forwards(steps, cfg, what, *, kernels=True, paged=False) -> None:
     """Every forward launched ``norms_per_forward(cfg)`` RMSNorms, all on
-    the rows kernel, the SSD kernel once per Mamba layer when S > 1
-    and never at S = 1 (the tensor-core kernel in bf16, the CUDA-core one
-    in fp32), and (hybrid) one flash kernel per occurrence (the decode
-    kernel at S = 1); without kernels, nothing."""
-    n_shared = cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    the rows kernel; one flash call per attention block (a dense or MoE
+    model's layers, a hybrid's shared-block occurrences) on the paged
+    kernel when ``paged`` and the dense one otherwise, on the decode kernel
+    exactly when ``S · H / KV <= fa._decode_rows(D)`` (the wrapper's rule);
+    the SSD kernel once per Mamba layer when S > 1 and never at S = 1 (the
+    tensor-core kernel in bf16, the CUDA-core one in fp32); the grouped
+    GEMM 3 times an MoE layer; nothing else.  Without kernels, nothing."""
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = (cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+            else 0 if cfg.family == "ssm" else cfg.n_layers)
     rep = cfg.n_heads // cfg.n_kv_heads
+    name = "flash_attention_paged" if paged else "flash_attention"
     norms = norms_per_forward(cfg)
+    mma = cfg.dtype == "bfloat16"
     for s, d in steps:
-        scans = cfg.n_layers if s > 1 else 0
-        mma = cfg.dtype == "bfloat16"
+        scans = mamba if s > 1 else 0
         want = {"rmsnorm": norms, "rmsnorm_rows": norms,
                 "rmsnorm_generic": 0, "ssd_scan": scans, "ssd_scan_mma": scans if mma else 0,
-                "ssd_scan_core": 0 if mma else scans, "flash_attention": n_shared,
-                "flash_attention_decode": n_shared if s * rep <= fa._DECODE_ROWS else 0}
+                "ssd_scan_core": 0 if mma else scans, name: attn,
+                name + "_decode": attn if s * rep <= fa._decode_rows(cfg.resolved_head_dim) else 0,
+                "grouped_gemm": 3 * cfg.n_layers if cfg.n_experts else 0}
         if not kernels:
             want = {k: 0 for k in want}
         other = {k: v for k, v in d.items() if k not in want and v}
@@ -1711,6 +2231,64 @@ def phase_parity_ssm(dev) -> dict:
         del params
         free_card()
     return {"paged_cli": paged_launches}
+
+
+SPEC_SSM_NEW = 32
+
+
+def phase_parity_spec_ssm(dev) -> dict:
+    """``spec_generate`` in fp32 at full width against the port's own
+    sequential greedy loop (:func:`greedy`): every token equal.  mamba2-130m
+    as target and draft (the recurrent draft's snapshot, the target's
+    verify-then-commit rewind), with a noisy draft and with a garbage one
+    (noise 0.5: acceptance near zero, pure rollback traffic); zamba2-2.7b at
+    full width and depth (54 layers) as the target, paged at P 64, with a
+    noisy zamba2 draft."""
+    from repro_torch.models.speculative import spec_generate
+
+    tag = "[parity-spec-ssm]"
+    out = {}
+    for arch, n, noises, page in ((MAMBA, 4, (SPEC_NOISE, 0.5), None),
+                                  (ZAMBA, 3, (SPEC_NOISE,), 64)):
+        cfg = full_cfg(arch, dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        prompts = ssm_prompts(cfg, n=n, seed=SEED + 6)
+        t0 = time.perf_counter()
+        seq = [greedy(model, params, p, SPEC_SSM_NEW, dev) for p in prompts]
+        t_seq = time.perf_counter() - t0
+        for noise in noises:
+            draft = noisy_copy(params, noise, SEED + 7, dev)
+            stats = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            got = spec_generate(model, params, model, draft, prompts, [SPEC_SSM_NEW] * n,
+                                spec_tokens=3, chunk=64, max_len=2048, page_tokens=page,
+                                stats=stats)
+            wall = time.perf_counter() - t0
+            launched = counts()
+            # zamba2: the paged target's verify forwards are [3, 64] (chunk
+            # 64), on the paged chunk tile; the draft's caches are dense
+            require(launched, ("rmsnorm", "ssd_scan") + (
+                ("flash_attention_paged", "flash_attention", "flash_attention_decode")
+                if page else ()), f"{arch} spec_generate")
+            a = stats["accepted"] / stats["proposed"]
+            if got != seq:
+                raise AssertionError(f"{arch} noise {noise}: spec_generate's tokens differ from "
+                                     f"sequential greedy in "
+                                     f"{sum(x != y for x, y in zip(got, seq))} of {n} rows")
+            if noise == 0.5 and not a <= 0.05:
+                raise AssertionError(f"{arch} noise 0.5: acceptance {a:.3f}, not near zero")
+            out[(arch, noise)] = dict(stats, acceptance=a)
+            log(f"{tag} {arch} fp32 {cfg.n_layers} layers, {n} prompts of "
+                f"{[len(p) for p in prompts]} tokens, {SPEC_SSM_NEW} new, k=3, chunk 64"
+                f"{f', target paged P{page}' if page else ''}; draft = target + {noise} N(0,1): "
+                f"{stats['rounds']} rounds, acceptance {a:.3f}; tokens equal to sequential greedy "
+                f"({wall:.2f}s; sequential {t_seq:.2f}s); launches {launched}")
+            del draft
+        del params
+        free_card()
+    return out
 
 
 def phase_trace_ssm(dev) -> None:
@@ -1984,6 +2562,53 @@ def time_paged(dev, flush, rows, arch, prefix, dtype) -> None:
             f"{r['ms'] / r['bound_ms']:.1f}x")
 
 
+def time_verify(dev, flush, rows, dtype) -> None:
+    """A speculative round's verify rows at llama's heads (D 64, GQA 4): 8
+    rows at random decode depths, [8, 4] (k = 3: the decode kernel) and
+    [8, 5] (k = 4: the chunk tile) at the same depths, dense and paged
+    (P 64), L2 flushed, beside the bytes bound and the fastest SDPA backend
+    (paged: the dense kernel at the same depths and the gather + SDPA
+    yardstick)."""
+    hk = HEADS[LLAMA]
+    # one set of depths for both widths, so the two routes read the same keys
+    depths = np.random.default_rng(SEED + 8).integers(0, 2048 - max(SPEC_K), size=8).tolist()
+    for k in SPEC_K:
+        sq = k + 1
+        inp = flash_inputs(dev, dtype, sq=sq, depths=depths, q_lens=[sq] * 8, **hk)
+        b_ms, b_by = bound(*flash_work(inp, {}), dtype)
+        lib_ms, lib, sweep = time_sdpa(dev, inp, {}, iters=20, flush=flush)
+        rows[("flash_attention", f"verify_k{k}")] = dict(
+            ms=time_ms(dev, lambda: run_flash(fa.flash_attention, inp, {}), flush=flush),
+            plain_ms=time_ms(dev, lambda: run_flash(fa.flash_attention_plain, inp, {}), iters=10,
+                             flush=flush),
+            library_ms=lib_ms, library=f"SDPA ({lib})" if lib else None, sdpa_sweep=sweep,
+            bound_ms=b_ms, bound_by=b_by, depths=depths,
+        )
+        pin = paged_inputs(dev, dtype, P=64, depths=depths, q_lens=[sq] * 8, sq=sq, shared=0, **hk)
+        dense_inp = gathered(pin)
+        byts, flops = flash_work(dense_inp, {})
+        k_end = pin["q_offsets"] + pin["q_lens"]
+        byts += int(((k_end + 63) // 64).sum().item()) * 4
+        pb_ms, pb_by = bound(byts, flops, dtype)
+        gather = lambda: (fa.paged_view(pin["pool_k"], pin["table"]),  # noqa: E731
+                          fa.paged_view(pin["pool_v"], pin["table"]))
+        r = rows[("flash_attention_paged", f"verify_k{k}")] = dict(
+            ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged, pin, {}), flush=flush),
+            plain_ms=time_ms(dev, lambda: run_paged(fa.flash_attention_paged_plain, pin, {}),
+                             iters=10, flush=flush),
+            dense_ms=time_ms(dev, lambda: run_flash(fa.flash_attention, dense_inp, {}),
+                             flush=flush),
+            gather_ms=time_ms(dev, gather, iters=20, flush=flush),
+            library_ms=None, bound_ms=pb_ms, bound_by=pb_by,
+        )
+        r["sdpa_ms"], plib, _ = time_sdpa(dev, dense_inp, {}, iters=20, flush=flush)
+        sd = "n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms ({plib})"
+        log(f"[time] flash_attention_paged verify_k{k} [8, {sq}] P=64 bf16 at depths {depths}: "
+            f"kernel {r['ms']:.4f} ms, dense kernel at the same depths {r['dense_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, yardstick gather {r['gather_ms']:.4f} ms + SDPA {sd}, "
+            f"bound {pb_ms:.5f} ms ({pb_by}), kernel/bound {r['ms'] / pb_ms:.1f}x")
+
+
 def time_gg(dev, flush, rows, dtype) -> None:
     """The grouped GEMM at qwen2-moe's four main-path shapes, L2 flushed
     before each call (the main path meets each layer's experts cold)."""
@@ -2031,6 +2656,7 @@ def phase_time(dev) -> dict:
     time_paged(dev, flush, rows, ZAMBA, "d80_", dtype)
     time_flash(dev, flush, rows, GEMMA, "d256_", dtype)
     time_paged(dev, flush, rows, GEMMA, "d256_", dtype)
+    time_verify(dev, flush, rows, dtype)
     for (name, case), r in rows.items():
         if name == "flash_attention_paged":
             continue
@@ -2070,36 +2696,50 @@ def decode_entries(name, times, errs, clis) -> dict:
     return out
 
 
+def timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, and a line with its wall time (the script's
+    budget is spent phase by phase)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    what = ", ".join([str(a) for a in args[1:]] + [f"{k}={v}" for k, v in kw.items()])
+    log(f"[phase] {fn.__name__}({what}): {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     dev = card["dev"]
     phase_build()
-    errs = phase_check(dev)
-    errs.update(phase_check_gg_split(dev))
-    errs.update(phase_check_decode(dev))
-    errs.update(phase_check_ssd(dev))
-    errs.update(phase_check_rmsnorm(dev))
-    served = phase_serve(dev)
-    phase_parity(dev)
-    phase_parity_paged(dev)
-    served_paged = phase_serve_paged(dev)
-    phase_parity(dev, MOE)
-    served_moe = phase_serve(dev, MOE)
-    served_moe_paged = phase_serve_paged(dev, MOE)
-    phase_parity(dev, QWEN3)
-    served_qwen3 = phase_serve(dev, QWEN3)
-    phase_parity(dev, GEMMA, paged=True)
-    served_gemma = phase_serve(dev, GEMMA)
-    served_gemma_paged = phase_serve_paged(dev, GEMMA)
-    phase_parity_gemma2(dev)
+    errs = timed(phase_check, dev)
+    errs.update(timed(phase_check_gg_split, dev))
+    errs.update(timed(phase_check_decode, dev))
+    errs.update(timed(phase_check_verify, dev))
+    errs.update(timed(phase_check_ssd, dev))
+    errs.update(timed(phase_check_rmsnorm, dev))
+    served = timed(phase_serve, dev)
+    timed(phase_parity, dev)
+    timed(phase_parity_paged, dev)
+    served_paged = timed(phase_serve_paged, dev)
+    parity_spec = timed(phase_parity_spec, dev)
+    served_spec = timed(phase_serve_spec, dev)
+    timed(phase_parity, dev, MOE)
+    served_moe = timed(phase_serve, dev, MOE)
+    served_moe_paged = timed(phase_serve_paged, dev, MOE)
+    timed(phase_parity, dev, QWEN3)
+    served_qwen3 = timed(phase_serve, dev, QWEN3)
+    timed(phase_parity, dev, GEMMA, paged=True)
+    served_gemma = timed(phase_serve, dev, GEMMA)
+    served_gemma_paged = timed(phase_serve_paged, dev, GEMMA)
+    timed(phase_parity_gemma2, dev)
     free_card()
-    served_gemma2 = phase_serve(dev, GEMMA2)
-    served_mamba = phase_serve_ssm(dev, MAMBA)
-    served_zamba = phase_serve_ssm(dev, ZAMBA)
-    parity_ssm = phase_parity_ssm(dev)
-    phase_trace_ssm(dev)
-    times = phase_time(dev)
+    served_gemma2 = timed(phase_serve, dev, GEMMA2)
+    served_mamba = timed(phase_serve_ssm, dev, MAMBA)
+    served_zamba = timed(phase_serve_ssm, dev, ZAMBA)
+    parity_ssm = timed(phase_parity_ssm, dev)
+    timed(phase_trace_ssm, dev)
+    timed(phase_parity_spec_ssm, dev)
+    times = timed(phase_time, dev)
 
     # the split-KV decode kernel's numbers at each head dim, dense and paged
     clis = {"d64": ("", served["cli"], served_paged["cli"]),
@@ -2164,6 +2804,28 @@ def main() -> int:
                 "max_abs_err": errs[(name, "d256_" + err_case, torch.bfloat16)],
             }
             row["decode"] = decode[name]
+            # a speculative round's verify rows, D 64 (llama): [8, 4] on the
+            # decode kernel, [8, 5] on the chunk tile; launches: the verify
+            # forwards of [parity-spec] (fp32) and [serve-spec] (k = 4, dense)
+            paged = name.endswith("paged")
+            row["verify"] = {}
+            for k in SPEC_K:
+                t = times[(name, f"verify_k{k}")]
+                dense_k4 = not paged and k == SPEC_SERVE_K
+                row["verify"][f"{'decode' if k == 3 else 'chunk'}_k{k}"] = {
+                    "shape": [8, k + 1],
+                    "launches": (served_spec["verify_launches"] if dense_k4
+                                 else parity_spec[(paged, k)]),
+                    "launches_from": "[serve-spec]" if dense_k4 else "[parity-spec]",
+                    "max_abs_err": errs[(name, f"d64_verify_sq{k + 1}" + ("_P64" if paged else ""),
+                                         torch.bfloat16)],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"] if not paged else None,
+                    **({"dense_ms": t["dense_ms"], "yardstick_gather_ms": t["gather_ms"],
+                        "yardstick_sdpa_ms": t["sdpa_ms"]} if paged else
+                       {"library": t["library"]}),
+                }
         if name == "grouped_gemm":
             # the four main-path shapes: gate/up and down at decode and chunk
             row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name],

@@ -6,11 +6,15 @@ batch engine, on the H100 (or the CPU with ``--device cpu``).
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --kv-page-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --draft llama3.2-1b --spec-tokens 4
 
 It takes the reference's single-engine flags, paged KV's among them
-(``--kv-page-tokens``, ``--no-prefix-sharing``, ``--kv-residency``); the
-knobs of speculation (``--spec-tokens``, ``--acceptance-rate``) and the
-router (``--slo-p99``, ``--dispatch``) come with their slices.  Serving runs at
+(``--kv-page-tokens``, ``--no-prefix-sharing``, ``--kv-residency``) and
+speculation's (``--draft``, ``--spec-tokens``, ``--acceptance-rate``: the
+draft's random weights from ``--seed`` + 1, and ``[spec]`` lines with the
+observed acceptance after the run); the router's (``--slo-p99``,
+``--dispatch``) come with its slice.  Serving runs at
 full width unless ``--smoke``, with per-layer params (``scan_layers=False``,
 the layout the engine serves from — the reference CLI keeps the config's
 ``scan_layers=True`` there and its executor refuses it), random weights
@@ -21,8 +25,8 @@ cards.  The engine runs with the adaptive observe → derate → replan loop
 closed; after the run the CLI prints the straggler report, every adaptation
 decision and every committed replan.
 
-Not ported yet: ``--replicas`` other than 1 (ROADMAP A8), ``--fault-schedule``
-(A8) and ``--draft`` (A7) exit with an error naming their ROADMAP item.
+Not ported yet: ``--replicas`` other than 1 (ROADMAP A8) and
+``--fault-schedule`` (A8) exit with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,18 +48,23 @@ from repro_torch.serving.engine import Request, ServingEngine
 _NOT_PORTED = {
     "replicas": "--replicas other than 1 is not yet ported (ROADMAP A8)",
     "fault_schedule": "--fault-schedule is not yet ported (ROADMAP A8)",
-    "draft": "--draft is not yet ported (ROADMAP A7)",
 }
+
+
+def serving_config(arch: str, smoke: bool):
+    """``arch``'s config as the CLI serves it: per-layer params and the
+    kernels (``attention_impl="pallas"``), at smoke size with ``smoke``."""
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    return dataclasses.replace(
+        cfg, scan_layers=False, remat=False, attention_impl="pallas"
+    )
 
 
 def build_engine(args) -> ServingEngine:
     """The engine the CLI serves with, from parsed arguments."""
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
-    cfg = dataclasses.replace(
-        cfg, scan_layers=False, remat=False, attention_impl="pallas"
-    )
+    cfg = serving_config(args.arch, args.smoke)
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device (use --device cpu)")
@@ -79,13 +88,24 @@ def build_engine(args) -> ServingEngine:
         kv_page_tokens=args.kv_page_tokens or None,
         prefix_sharing=args.prefix_sharing,
         kv_residency=args.kv_residency,
+        spec_tokens=args.spec_tokens if args.draft else 0,
+        acceptance_rate=args.acceptance_rate,
     )
+    draft_kw = {}
+    if args.draft:
+        draft_cfg = serving_config(args.draft, args.smoke)
+        dgen = torch.Generator(device=devices[0]).manual_seed(args.seed + 1)
+        draft_kw = dict(
+            draft_cfg=draft_cfg,
+            draft_params=build_model(draft_cfg).init(dgen, devices[0]),
+        )
     return ServingEngine(
         cfg, params, cluster,
         devices=devices,
         slots=args.slots, max_len=args.max_len,
         plan_cfg=plan_cfg,
         eos_id=-1,
+        **draft_kw,
         # short windows can't carry the default 4-sample evidence minimum —
         # scale it down so --adapt-every 1..3 still observes (and acts)
         adapt=AdaptationConfig(
@@ -172,7 +192,25 @@ def main(argv=None):
     )
     ap.add_argument(
         "--draft", default=None, metavar="ARCH",
-        help="speculative serving with this draft arch: not yet ported (ROADMAP A7)",
+        help="serve speculatively: this (smaller) arch drafts --spec-tokens "
+        "greedy tokens per ready slot between target steps and ONE fused "
+        "target forward verifies them (variable per-slot advance, token-"
+        "identical to plain greedy); draft + target are placed JOINTLY over "
+        "the merged pass-rate graph (shared Eq. 5 memory, per-device busy "
+        "summed across both models).  Dense/moe draft archs only (the stage "
+        "executor serves attention-family blocks); random weights from "
+        "--seed + 1",
+    )
+    ap.add_argument(
+        "--spec-tokens", type=int, default=4, metavar="K",
+        help="draft tokens proposed per speculative round (with --draft)",
+    )
+    ap.add_argument(
+        "--acceptance-rate", type=float, default=0.75, metavar="A",
+        help="the acceptance rate the joint planner assumes when scoring "
+        "draft/target placements (expected tokens per round "
+        "E = (1-a^(k+1))/(1-a)); compare against the observed per-class "
+        "rates in the post-run speculation report",
     )
     ap.add_argument(
         "--prompt-len", type=int, default=0, metavar="TOKENS",
@@ -226,6 +264,10 @@ def main(argv=None):
             f"{',shared' if engine.prefix_sharing else ''})"
             if engine.kv_page_tokens else " kv=dense"
         )
+        + (
+            f" spec=draft:{args.draft},k={engine.spec_tokens}"
+            if args.draft else ""
+        )
     )
     t0 = time.perf_counter()
     reqs = [
@@ -243,6 +285,19 @@ def main(argv=None):
     if engine._kv_pool is not None:
         print(f"[serve] kv pool: {engine._kv_pool.stats()}")
     print(f"[serve] straggler report: {engine.straggler_report()['stragglers']}")
+    if args.draft:
+        spec = engine.speculation_report()
+        print(
+            f"[spec] k={spec['spec_tokens']} planned a="
+            f"{spec['planned_acceptance_rate']:.2f} "
+            f"(E={spec['planned_tokens_per_round']:.2f} tok/round)"
+        )
+        for cls, row in spec["classes"].items():
+            print(
+                f"[spec]   {cls}: {row['rounds']} rounds, observed a="
+                f"{row['acceptance_rate']:.2f}, "
+                f"{row['tokens_per_round']:.2f} tok/round"
+            )
 
     # ---- surface the adaptation loop's decisions -------------------------
     print(

@@ -75,11 +75,21 @@
   shared page-aligned prompt prefixes are reused by reference and their
   prefill chunks skipped, a partially matched page is copied at admission,
   and the table rides into each fused step with one host-to-device copy,
-* **not yet ported** (ROADMAP A7): speculative draft/target serving
-  (``draft_cfg``) raises ``NotImplementedError``.  So does an SSM or
-  hybrid model (mamba2, zamba2): as in the reference, those families are
-  served at the model level only (``build_model(cfg).fused_step`` and the
-  other entry points), never through the engine's stage executor.
+* **speculative draft/target serving** (``draft_cfg``): the per-slot step
+  becomes a *variable-advance* step — a second stage pipeline runs the
+  draft model (placed JOINTLY with the target over the merged pass-rate
+  graph, :mod:`repro_torch.core.spec_plan`), proposes ``spec_tokens``
+  greedy tokens per ready slot, and ONE fused target forward verifies
+  them as ``q_len=spec_tokens+1`` rows mixed with decode, prefill and idle
+  rows; each slot advances by its accepted count + 1, token-identical to
+  plain greedy decode (:mod:`repro_torch.models.speculative`).
+  Per-request-class acceptance rates are reported in
+  ``straggler_report()["speculation"]``,
+* **not served here**: an SSM or hybrid model (mamba2, zamba2) raises
+  ``NotImplementedError``, and an SSM or hybrid draft ``ValueError``: as
+  in the reference, those families are served at the model level only
+  (``build_model(cfg).fused_step``, ``speculative.spec_generate``), never
+  through the engine's stage executor.
 
 The port runs on ``torch`` devices (default: every visible CUDA card) and
 keeps the reference's host-side logic — planning, admission, adaptation,
@@ -99,11 +109,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import cuda_devices
-from repro_torch.core.costmodel import CostModel, DerateCalibrator
+from repro_torch.core.costmodel import (
+    CostModel,
+    DerateCalibrator,
+    expected_accepted_tokens,
+)
 from repro_torch.core.devices import ClusterSpec
 from repro_torch.core.modelgraph import transformer_graph
 from repro_torch.core.milp import PlacementResult
 from repro_torch.core.placement import PlanConfig, plan, replan
+from repro_torch.core.spec_plan import merge_spec_graphs, split_spec_placement
+from repro_torch.models.speculative import greedy_accept, rolled_back_draft_pos
 from .adaptation import AdaptationConfig, AdaptationEvent, DeratePolicy
 from .kv_pool import StrictKVPool
 from .stage_executor import (
@@ -223,10 +239,21 @@ class ServingEngine:
             service plan, remapped to THIS engine's cluster indices) —
             skips the engine-startup ``plan()`` call entirely.  Must cover
             exactly this engine's block graph at ``max_len``.
-        draft_cfg: speculative serving's draft model — not ported yet
-            (ROADMAP A7): anything but ``None`` raises
-            ``NotImplementedError``.
-        draft_params: the draft model's parameters (see ``draft_cfg``).
+        draft_cfg: attach a DRAFT model and serve speculatively: between
+            target steps the draft proposes ``plan_cfg.spec_tokens`` greedy
+            tokens per ready slot, ONE fused target forward verifies them
+            (``q_len=spec_tokens+1`` rows in the mixed batch), and each
+            slot advances by its accepted count + 1 — token-identical to
+            plain greedy decode by construction.  Placement is solved
+            JOINTLY over the merged draft+target graph
+            (:mod:`repro_torch.core.spec_plan`): shared Eq. 5 memory,
+            per-device busy summed across both models at the plan's
+            ``acceptance_rate``.  Requires the fused ragged path and
+            ``draft_params``; incompatible with ``placement_result``; a
+            dense or MoE draft only.
+        draft_params: the draft model's parameters (placed onto the draft
+            stages' devices at build; tensors already there are shared,
+            not copied).
     """
 
     # sentinel: "take prefill_chunk from the plan config"
@@ -257,10 +284,6 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.cluster = cluster
-        if draft_cfg is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_cfg) is not ported yet (ROADMAP A7)"
-            )
         check_servable(cfg)
         if devices is None:
             devices = cuda_devices()
@@ -342,6 +365,48 @@ class ServingEngine:
         # prefill chunks a shared-prefix hit let admission skip (whole run)
         self.prefill_chunks_skipped = 0
 
+        # speculative decoding (variable-advance steps): a draft model
+        # proposes plan_cfg.spec_tokens greedy tokens per ready slot between
+        # target steps; ONE fused target forward verifies them as q_len=k+1
+        # rows and each slot advances by its accepted count + the bonus
+        # token.  Spec rides the fused ragged path — the verify row IS a
+        # mixed-batch row with a bigger q_len — so it requires it.
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("speculative serving needs draft_params")
+            if not (self.batching == "ragged" and self.prefill_chunk and self.fused):
+                raise ValueError(
+                    "speculative serving (draft_cfg) requires ragged "
+                    "batching with chunked + fused prefill"
+                )
+            if draft_cfg.family not in ("dense", "moe"):
+                # the stage executor serves attention-family blocks only
+                # (the same constraint the target is under); SSM/hybrid
+                # drafts work at the model level (spec_generate) and in
+                # joint planning, not behind the executor
+                raise ValueError(
+                    f"speculative serving needs a dense/moe draft; "
+                    f"got family {draft_cfg.family!r}"
+                )
+            if int(getattr(self.plan_cfg, "spec_tokens", 0) or 0) < 1:
+                # a draft without an explicit k gets the conventional 4
+                self.plan_cfg = dataclasses.replace(self.plan_cfg, spec_tokens=4)
+        self.spec_tokens = (
+            int(self.plan_cfg.spec_tokens) if draft_cfg is not None else 0
+        )
+        # per-request-class acceptance tracking (class = Request.tier when
+        # the router stamped one, else "default"); survives rebuilds —
+        # it reports the workload, not one executor's lifetime
+        self._spec_stats: Dict[str, Dict[str, int]] = {}
+        # injection point: ``(req, proposals) -> proposals`` replaces a spec
+        # row's k proposals AFTER the draft forwards ran (their cost stays
+        # charged).  Verification is oblivious to where proposals came
+        # from, so token identity is preserved for ANY hook — a benchmark
+        # uses it to pin the acceptance rate with an oracle draft
+        self._proposal_hook = None
+
         # adaptation loop state: the policy owns streaks/hysteresis, the
         # engine owns the applied derate maps and the (derated) cost model.
         # With AdaptationConfig.state_path set, a previously persisted
@@ -373,11 +438,41 @@ class ServingEngine:
         self.fault_log: Deque[Dict[str, Any]] = deque(maxlen=4096)
 
         self.graph = transformer_graph(cfg, seq_len=max_len, granularity="block")
+        # joint draft+target planning: ONE merged pass-rate-annotated graph
+        # (core.spec_plan) goes through the same plan()/replan() envelope,
+        # so Eq. 5 memory is shared and the throughput objective sums both
+        # models' decode busy per device — the draft lands on devices the
+        # target leaves idle, which is the point of speculation on a
+        # heterogeneous cluster
+        self._draft_graph = None
+        self._spec_merged = None
+        self._spec_result: Optional[PlacementResult] = None
+        self._draft_placement: Optional[Dict[int, int]] = None
+        if draft_cfg is not None:
+            self._draft_graph = transformer_graph(
+                draft_cfg, seq_len=max_len, granularity="block"
+            )
+            self._spec_merged, self._spec_tmap, self._spec_dmap = (
+                merge_spec_graphs(
+                    self.graph,
+                    self._draft_graph,
+                    spec_tokens=self.spec_tokens,
+                    acceptance_rate=float(
+                        getattr(self.plan_cfg, "acceptance_rate", 0.75)
+                    ),
+                )
+            )
         self._cost = self._make_cost()
         if placement_result is not None:
             # a pre-solved plan (the router hands each replica its slice of
             # the service plan, in THIS engine's cluster indices) — must
             # cover the same block graph this engine builds at max_len
+            if draft_cfg is not None:
+                raise ValueError(
+                    "placement_result cannot be combined with draft_cfg: "
+                    "pre-solved plans do not cover the draft graph (plan "
+                    "jointly with core.spec_plan.plan_speculative instead)"
+                )
             if set(placement_result.placement) != set(self.graph.nodes):
                 raise ValueError(
                     "placement_result does not cover this engine's graph "
@@ -460,14 +555,29 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _solve_placement(self) -> PlacementResult:
-        """Solve THE placement problem this engine serves — one path shared
-        by startup and every failure/derate replan."""
+        """Solve THE placement problem this engine serves: the target graph
+        alone, or — in speculative mode — the merged draft+target graph,
+        whose result is split back into the target projection (stored as
+        :attr:`placement_result`, what every stage/cost path consumes) and
+        the draft projection (:attr:`_draft_placement`).  One path shared by
+        startup and every failure/derate replan, so a hot-swap re-solves the
+        JOINT problem, never the target alone."""
+        graph = self._spec_merged if self._spec_merged is not None else self.graph
         if self.failed_devices or self.derate or self.link_derate:
-            return replan(
-                self.graph, self.cluster, self.failed_devices, self.plan_cfg,
+            res = replan(
+                graph, self.cluster, self.failed_devices, self.plan_cfg,
                 derate=self.derate, link_derate=self.link_derate,
             )
-        return plan(self.graph, self.cluster, self.plan_cfg)
+        else:
+            res = plan(graph, self.cluster, self.plan_cfg)
+        if self._spec_merged is not None:
+            tgt, dft = split_spec_placement(
+                res.placement, self._spec_tmap, self._spec_dmap
+            )
+            self._spec_result = res
+            self._draft_placement = dft
+            res = dataclasses.replace(res, placement=tgt)
+        return res
 
     # ------------------------------------------------------------------
     def _persist_policy(self):
@@ -496,6 +606,31 @@ class ServingEngine:
         )
         self.executor = StageExecutor(self.cfg, self.params, stages)
         self.caches = None  # caches are invalid after a topology change
+        # speculative mode: the draft runs as a SECOND stage pipeline over
+        # the jointly planned draft placement, with its own dense per-slot
+        # caches (the draft never pages — its rows are cheap and its
+        # rollback is the same overwrite-before-read argument as the
+        # target's).  Both pipelines launch on the current stream of each
+        # card, one after the other, so the grouped GEMM's per-card scratch
+        # (kernels/grouped_gemm.py) is never used by two calls at once.
+        # Draft progress dies with the old topology too.
+        self._draft_executor = None
+        self._draft_caches = None
+        self._draft_pos = np.zeros(self.slots, dtype=np.int64)
+        if self._draft_graph is not None:
+            dstages = stages_from_placement(
+                self._draft_graph,
+                self._executor_placement(self._draft_placement),
+                self.devices,
+                self.draft_cfg.n_layers,
+            )
+            self._draft_executor = StageExecutor(
+                self.draft_cfg, self.draft_params, dstages
+            )
+        # per-slot KV write ceiling for speculative rounds: dense rows allow
+        # the full max_len; paged slots may only write inside their mapped
+        # pages (set at admission to the sequence's allocated head)
+        self._slot_cap = np.full(self.slots, self.max_len, dtype=np.int64)
         # ...and so is any mid-prefill progress: the chunks written so far
         # lived in the old executor's cache rows
         self._prefill_toks: Dict[int, List[int]] = {}
@@ -553,7 +688,13 @@ class ServingEngine:
         # and the placement only changes on rebuild — resolve the max
         # feasible in-flight count ONCE here so per-step admission is an
         # integer compare, not an O(nodes) memory scan
-        mem_graph, mem_place = self.graph, self.placement_result.placement
+        # in speculative mode the residency check covers BOTH models: the
+        # merged graph with the merged placement, so one admission decision
+        # accounts for target KV + draft params + draft KV on shared devices
+        if self._spec_result is not None:
+            mem_graph, mem_place = self._spec_merged, self._spec_result.placement
+        else:
+            mem_graph, mem_place = self.graph, self.placement_result.placement
         self._max_in_flight = 0
         for n in range(self.slots, 0, -1):
             if self._cost.memory_ok(mem_graph, mem_place, serving_slots=n):
@@ -651,9 +792,16 @@ class ServingEngine:
                 toks_head = list(head.prompt) + list(head.out_tokens)
                 # paged: the sequence's pages (net of reusable shared-prefix
                 # pages) must be obtainable from the pool — free now or
-                # LRU-evictable — on top of the planner-level Eq. 5 check
+                # LRU-evictable — on top of the planner-level Eq. 5 check.
+                # Speculative rounds write up to spec_tokens+1 provisional
+                # positions past the committed depth before rollback, so the
+                # allocation reserves that headroom — a slot near its cap
+                # falls back to plain decode (see _step_fused) rather than
+                # write into unmapped pages
                 total_head = min(
-                    len(head.prompt) + int(head.max_new_tokens), self.max_len
+                    len(head.prompt) + int(head.max_new_tokens)
+                    + (self.spec_tokens + 1 if self.spec_tokens else 0),
+                    self.max_len,
                 )
                 pool_ok = self._kv_pool is None or self._kv_pool.can_admit(
                     toks_head, total_head
@@ -718,6 +866,13 @@ class ServingEngine:
                     self._prefill_toks[slot] = toks_list
                     self._prefill_done[slot] = reuse
                     self.slot_pos[slot] = reuse
+                    # new tenant: the draft re-prefills this slot's stream
+                    # from token 0 (old rows are garbage it overwrites), and
+                    # spec writes must stay inside the mapped pages
+                    self._draft_pos[slot] = 0
+                    self._slot_cap[slot] = (
+                        total_head if self._kv_pool is not None else self.max_len
+                    )
                     continue
                 # blocking whole-prompt prefill (lockstep baseline, or
                 # prefill_chunk=None): batch-1 prefill into the slot's row
@@ -871,6 +1026,8 @@ class ServingEngine:
             # decode then writes (and attends) at its row's position 0,
             # which the next admission's full-row prefill overwrites anyway
             self.slot_pos[slot] = 0
+            self._draft_pos[slot] = 0
+            self._slot_cap[slot] = self.max_len
             if self._kv_pool is not None:
                 # deref the slot's pages; registered prefix pages park in
                 # the LRU ring for future sharers, private pages free
@@ -991,7 +1148,22 @@ class ServingEngine:
         offset, idle rows ``q_len=0`` (they write NOTHING — unlike the
         legacy path's garbage rows).  Every mid-prefill slot advances every
         step, and the slot cache rows are written in place (no
-        ``_slot_row_caches`` gather / ``_write_slot_cache`` scatter)."""
+        ``_slot_row_caches`` gather / ``_write_slot_cache`` scatter).
+
+        With a draft (``draft_cfg``) this is the SPECULATIVE, variable-advance
+        step: :meth:`_draft_phase` first proposes ``d_1..d_k`` for every
+        spec-ready slot, and those slots ride the same forward as verify rows
+        (``q_len=k+1``: the pending token + the k proposals at the slot's
+        depth), so S is ``k+1`` when no prefill is pending.  Slots whose
+        draft is still catching up, or whose cache cannot hold ``k+1``
+        provisional writes, stay plain decode rows.  Each verify row advances
+        by ``accepted+1`` tokens
+        (:func:`~repro_torch.models.speculative.greedy_accept` —
+        token-identical to plain greedy by construction); rejected positions
+        leave garbage KV that the overwrite-before-read argument retires
+        (see :mod:`repro_torch.models.speculative`), and the draft rolls
+        back by bookkeeping only
+        (:func:`~repro_torch.models.speculative.rolled_back_draft_pos`)."""
         idx = [
             i for i, r in enumerate(self.active)
             if r is not None and i not in self._prefill_toks
@@ -1000,7 +1172,12 @@ class ServingEngine:
         if not idx and not pf_slots:
             return 0
         self._ensure_caches()
+        k = self.spec_tokens
+        proposals, committed = self._draft_phase(idx) if self._spec_on() else ({}, {})
+        dec_rows = [i for i in idx if i not in proposals]
         s = self.prefill_chunk if pf_slots else 1
+        if proposals:
+            s = max(s, k + 1)
         tokens = np.zeros((self.slots, s), dtype=np.int32)
         q_lens = np.zeros(self.slots, dtype=np.int32)
         cache_pos = np.zeros(self.slots, dtype=np.int32)
@@ -1008,6 +1185,9 @@ class ServingEngine:
             tokens[i, 0] = self.active[i].out_tokens[-1]
             q_lens[i] = 1
             cache_pos[i] = self.slot_pos[i]
+        for i, props in proposals.items():
+            tokens[i, 1 : k + 1] = props
+            q_lens[i] = k + 1
         pf_n: Dict[int, int] = {}
         for i in pf_slots:
             done = self._prefill_done[i]
@@ -1027,11 +1207,29 @@ class ServingEngine:
             page_table=self._page_table(),
         )
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # [slots, S]
-        for i in idx:
+        for i in dec_rows:
             req = self.active[i]
             req.out_tokens.append(int(nxt[i, 0]))
             self.slot_pos[i] += 1
             self._maybe_retire(i, int(nxt[i, 0]))
+        for i, props in proposals.items():
+            req = self.active[i]
+            # preds[t] = the target's greedy token after the pending token
+            # plus d_1..d_t — row t of the verify span
+            preds = [int(nxt[i, t]) for t in range(k + 1)]
+            accepted, emitted = greedy_accept(props, preds)
+            self._record_acceptance(req, proposed=k, accepted=accepted)
+            # draft rollback is bookkeeping: keep the accepted prefix of
+            # the proposals it already fed itself
+            self._draft_pos[i] = rolled_back_draft_pos(committed[i], accepted, k)
+            # variable advance, one token at a time: EOS / budget /
+            # capacity truncate the round exactly where plain greedy
+            # decoding would have stopped
+            for tok in emitted:
+                req.out_tokens.append(tok)
+                self.slot_pos[i] += 1
+                if self._maybe_retire(i, tok):
+                    break
         for i in pf_slots:
             n = pf_n[i]
             done = self._prefill_done[i] + n
@@ -1057,6 +1255,159 @@ class ServingEngine:
             if self._steps_since_window >= ws:
                 self.observe_window()
         return len(set(idx) | set(pf_slots))
+
+    # ------------------------------------------------------------------
+    # speculative decoding: variable-advance fused steps
+    # ------------------------------------------------------------------
+    def _spec_on(self) -> bool:
+        """Speculative stepping is active when a draft pipeline was built
+        (``draft_cfg`` given; requires the fused ragged path)."""
+        return self._draft_executor is not None
+
+    def _ensure_draft_caches(self):
+        """Dense ``(slots, max_len)`` draft caches on the draft stages'
+        devices — the draft never pages (see ``_build_executor``)."""
+        if self._draft_caches is None:
+            self._draft_caches = self._draft_executor.init_caches(
+                self.slots, self.max_len
+            )
+
+    def _record_acceptance(self, req: Request, *, proposed: int, accepted: int):
+        """Accumulate one verify round into the per-request-class
+        acceptance counters (class = ``tier<t>`` when the router stamped
+        :attr:`Request.tier`, else ``"default"``)."""
+        tier = getattr(req, "tier", None)
+        cls = "default" if tier is None else f"tier{int(tier)}"
+        rec = self._spec_stats.setdefault(
+            cls, {"rounds": 0, "proposed": 0, "accepted": 0, "emitted": 0}
+        )
+        rec["rounds"] += 1
+        rec["proposed"] += proposed
+        rec["accepted"] += accepted
+        rec["emitted"] += accepted + 1
+
+    def speculation_report(self) -> Dict[str, Any]:
+        """Observed speculative-decoding summary: per-request-class
+        acceptance rates and tokens/round next to the planner's assumed
+        ``acceptance_rate`` / expected tokens per round — drift between the
+        two is the signal to re-plan with a calibrated rate."""
+        a_planned = float(getattr(self.plan_cfg, "acceptance_rate", 0.75))
+        classes: Dict[str, Dict[str, float]] = {}
+        for cls, rec in sorted(self._spec_stats.items()):
+            out: Dict[str, float] = dict(rec)
+            out["acceptance_rate"] = (
+                rec["accepted"] / rec["proposed"] if rec["proposed"] else 0.0
+            )
+            out["tokens_per_round"] = (
+                rec["emitted"] / rec["rounds"] if rec["rounds"] else 0.0
+            )
+            classes[cls] = out
+        return {
+            "spec_tokens": self.spec_tokens,
+            "planned_acceptance_rate": a_planned,
+            "planned_tokens_per_round": expected_accepted_tokens(
+                a_planned, self.spec_tokens
+            ),
+            "classes": classes,
+        }
+
+    def _draft_phase(
+        self, idx: List[int]
+    ) -> Tuple[Dict[int, List[int]], Dict[int, int]]:
+        """The draft's half of a speculative step (between target steps):
+        one ragged catch-up forward of ``[slots, max(prefill_chunk, 2)]``
+        feeds every slot's draft the committed tokens it has not seen yet
+        (mid-prefill slots' drafts prefill CONCURRENTLY with the target's
+        chunked prefill), producing the first proposal ``d_1`` for every
+        spec-ready row; ``k-1`` forwards of ``[slots, 1]`` then extend each
+        row's proposal chain to ``d_1..d_k``.  Returns the proposals of each
+        spec-ready slot of ``idx`` (the decode-ready slots) and its committed
+        length (prompt + output) at the start of the round."""
+        k = self.spec_tokens
+        self._ensure_draft_caches()
+        # catch-up width: covers the steady-state 1–2 token lag after a
+        # round (bonus, or rejected tail + bonus) and lets a fresh slot's
+        # draft prefill ride at the target's chunk pace
+        s0 = max(self.prefill_chunk, 2)
+        commit: Dict[int, List[int]] = {}
+        spec_rows: List[int] = []
+        for i in idx:
+            req = self.active[i]
+            commit[i] = list(req.prompt) + list(req.out_tokens)
+            behind = len(commit[i]) - int(self._draft_pos[i])
+            if behind <= s0 and int(self.slot_pos[i]) + k + 1 <= int(
+                self._slot_cap[i]
+            ):
+                spec_rows.append(i)
+        d_toks = np.zeros((self.slots, s0), dtype=np.int32)
+        d_qlens = np.zeros(self.slots, dtype=np.int32)
+        d_pos = np.zeros(self.slots, dtype=np.int32)
+        feed_n: Dict[int, int] = {}
+        for i in range(self.slots):
+            if i in self._prefill_toks:
+                stream = self._prefill_toks[i]
+            elif self.active[i] is not None:
+                stream = commit[i]
+            else:
+                continue
+            dp = int(self._draft_pos[i])
+            n = min(s0, len(stream) - dp)
+            if n <= 0:
+                continue
+            d_toks[i, :n] = stream[dp : dp + n]
+            d_qlens[i] = n
+            d_pos[i] = dp
+            feed_n[i] = n
+        proposals: Dict[int, List[int]] = {}
+        if feed_n:
+            logits0, self._draft_caches = self._draft_executor.forward(
+                torch.from_numpy(d_toks),
+                self._draft_caches,
+                cache_pos=d_pos,
+                kind="fused",
+                q_lens=torch.from_numpy(d_qlens),
+            )
+            nxt0 = torch.argmax(logits0, dim=-1).cpu().numpy()
+            for i, n in feed_n.items():
+                self._draft_pos[i] += n
+                if i in spec_rows:
+                    # the last fed row (the pending token) predicts d_1
+                    proposals[i] = [int(nxt0[i, n - 1])]
+        # a spec-ready row always has backlog >= 1 (the pending token is
+        # never fed ahead of its round), so it always drafted above — the
+        # filter is pure defensive hygiene
+        spec_rows = [i for i in spec_rows if i in proposals]
+        for _ in range(1, k):
+            if not spec_rows:
+                break
+            p_toks = np.zeros((self.slots, 1), dtype=np.int32)
+            p_q = np.zeros(self.slots, dtype=np.int32)
+            p_pos = np.zeros(self.slots, dtype=np.int32)
+            for i in spec_rows:
+                p_toks[i, 0] = proposals[i][-1]
+                p_q[i] = 1
+                # feed the newest proposal at the draft's frontier:
+                # committed length + proposals already fed
+                p_pos[i] = int(self._draft_pos[i]) + len(proposals[i]) - 1
+            logits1, self._draft_caches = self._draft_executor.forward(
+                torch.from_numpy(p_toks),
+                self._draft_caches,
+                cache_pos=p_pos,
+                kind="fused",
+                q_lens=torch.from_numpy(p_q),
+            )
+            nxt1 = torch.argmax(logits1, dim=-1).cpu().numpy()
+            for i in spec_rows:
+                proposals[i].append(int(nxt1[i, 0]))
+        if self._proposal_hook is not None:
+            for i in spec_rows:
+                hooked = list(self._proposal_hook(self.active[i], proposals[i]))
+                assert len(hooked) == k, "proposal hook must keep length k"
+                proposals[i] = [int(t) for t in hooked]
+        return (
+            {i: proposals[i] for i in spec_rows},
+            {i: len(commit[i]) for i in spec_rows},
+        )
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
         """Step until the queue and all slots are empty (or ``max_steps``).
@@ -1161,6 +1512,9 @@ class ServingEngine:
         pending = [r for r in self.active if r is not None]
         self.active = [None] * self.slots
         self.slot_pos = np.zeros(self.slots, dtype=np.int64)
+        # the draft's progress lived in the old topology's caches too —
+        # every re-admitted stream re-prefills the draft from token 0
+        self._draft_pos = np.zeros(self.slots, dtype=np.int64)
         self._prefill_toks = {}
         self._prefill_done = {}
         self.queue[:0] = pending
@@ -1168,7 +1522,9 @@ class ServingEngine:
     def _replan_and_rebuild(self, reason: str):
         """Re-plan on the observed cluster (minus failures, with device AND
         channel derates) and hot-swap the executor; one path shared by
-        failure handling, fault injection, and the adaptation loop."""
+        failure handling, fault injection, and the adaptation loop.  In
+        speculative mode the re-solve covers the merged draft+target
+        problem, so a failure under the draft re-places it jointly."""
         res = self._solve_placement()
         self.placement_result = res
         self.cluster_effective = self._effective_cluster()
@@ -1665,6 +2021,10 @@ class ServingEngine:
             "kv": (
                 self._kv_pool.stats() if self._kv_pool is not None else None
             ),
-            # speculative acceptance: None until that path is ported (A7)
-            "speculation": None,
+            # speculative decoding (None when no draft is attached):
+            # per-request-class observed acceptance vs the planner's assumed
+            # rate — see speculation_report()
+            "speculation": (
+                self.speculation_report() if self._spec_on() else None
+            ),
         }

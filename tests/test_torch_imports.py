@@ -39,6 +39,10 @@ def test_every_module_imports_with_jax_blocked():
         "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2',"
         " '--kv-page-tokens', '4'])\n"
+        # ...and speculative serving
+        "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"
+        " '--max-new-tokens', '3', '--method', 'etf', '--prefill-chunk', '2',"
+        " '--draft', 'llama3.2-1b', '--spec-tokens', '2'])\n"
         # ...and the MoE path
         "main(['--arch', 'qwen2-moe-a2.7b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2'])\n"
@@ -56,6 +60,10 @@ def test_every_module_imports_with_jax_blocked():
         "    c = m.init_paged_cache(4, 8, 2, 'cpu')\n"
         "    m.fused_step(p, {'tokens': toks}, c, [0, 0], [5, 3],"
         " page_table=torch.tensor([[0, 1], [2, 3]]))\n"
+        # ...and the model-level speculative loop, paged
+        "    from repro_torch.models.speculative import spec_generate\n"
+        "    spec_generate(m, p, m, p, [[1, 2, 3]], [3], spec_tokens=2, chunk=2, max_len=16,"
+        " page_tokens=4)\n"
         "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " if sys.modules[m] is not None]\n"
         "print(len(names))\n"

@@ -166,10 +166,13 @@ def test_engine_applies_injected_faults(models):
 
 
 def test_engine_refuses_unported_paths(models):
+    """Speculative serving is ported; what the reference refuses — an SSM
+    draft behind the stage executor — the port refuses too."""
     _, tcfg, _, tp = models
-    with pytest.raises(NotImplementedError):
+    ssm = t_get_config("mamba2-130m").smoke()
+    with pytest.raises(ValueError, match="dense/moe draft"):
         TServingEngine(tcfg, tp, h100_cluster(1), devices=CPU,
-                       plan_cfg=TPlanConfig(method="etf"), draft_cfg=tcfg, draft_params=tp)
+                       plan_cfg=TPlanConfig(method="etf"), draft_cfg=ssm, draft_params=tp)
 
 
 def test_engine_default_devices_need_a_card(models):
@@ -191,9 +194,23 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "tok/s" in out and "cluster=h100-x1" in out
 
 
-@pytest.mark.parametrize(
-    "flag", [["--replicas", "2"], ["--draft", "llama3.2-1b"], ["--fault-schedule", "x.json"]],
-)
+def test_serve_cli_draft_on_cpu(capsys):
+    """``--draft`` serves speculatively, prints the ``[spec]`` lines, and
+    emits the tokens of the same run without a draft."""
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--requests", "3",
+            "--max-new-tokens", "6", "--method", "etf"]
+    _, plain = t_serve.main(argv)
+    capsys.readouterr()
+    engine, reqs = t_serve.main(argv + ["--draft", "llama3.2-1b", "--spec-tokens", "3"])
+    out = capsys.readouterr().out
+    assert engine.spec_tokens == 3 and engine._spec_on()
+    assert "spec=draft:llama3.2-1b,k=3" in out
+    assert "[spec] k=3 planned a=0.75" in out and "[spec]   default:" in out
+    assert engine.speculation_report()["classes"]["default"]["rounds"] > 0
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in plain]
+
+
+@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--fault-schedule", "x.json"]])
 def test_serve_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit):
         t_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag])
