@@ -130,7 +130,30 @@ Phases (any failure exits non-zero; nothing is caught):
    ``[parity-spec-ssm]``: ``spec_generate`` in fp32 equal to sequential
    greedy for mamba2-130m (noise 2e-3 and 0.5: zero acceptance) and
    zamba2-2.7b (12 layers, paged P 64);
-10. time each kernel, its plain version and one PyTorch library call for
+10. the multi-replica router and the chaos harness (llama3.2-1b; every
+   modeled device of ``h100_cluster(k)`` mapped onto the one card, the
+   replicas stepped in turn on its stream; a device crash is a modeled
+   fault that replans, nothing on the card fails). ``[parity-router]``,
+   fp32, 2 full-width layers, dense and paged (P 64): a one-replica
+   ``Router.from_service_plan``, two replicas under ``least_loaded`` and
+   ``shortest_prefill``, and two replicas with replica 0's device crashed
+   at router step 20 (its requests retried on replica 1 through a
+   re-prefill) give a direct engine's tokens; so does one engine on three
+   modeled devices taking a crash mid-prefill, a stall and its recover, a
+   link degrade and its recover; then two retire → spawn cycles with the
+   card's allocated memory before and after (a retired replica's KV caches
+   must be released) and each spawn's plan and build time.
+   ``[parity-router-moe]``: qwen2-moe-a2.7b, fp32, 2 layers, two replicas
+   sharing the grouped GEMM's scratch give a direct engine's tokens, both
+   launching it.  ``[serve-router]``: the CLI at full width in bf16 with
+   ``--replicas 2``, ``--replicas auto --cluster-size 4`` and a written-out
+   ``--fault-schedule`` (a link degrade, a stall that recovers, a crash);
+   each submission ends in one typed terminal state, the counters sum to
+   the submissions, and the launches are the sum of the replicas'
+   forwards, each held to its per-forward counts; then phase 4's traffic
+   through one engine of 16 slots and a router of two 8-slot replicas, in
+   turns, three runs each (the router's host cost on one card);
+11. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
@@ -171,6 +194,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -968,24 +992,34 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def make_engine(cfg, params, dev, *, slots, max_len):
+def serve_plan(slots, page_tokens=None, sharing=True) -> PlanConfig:
+    return PlanConfig(method="moirai", time_limit=20.0, objective="throughput",
+                      serving_slots=slots, kv_page_tokens=page_tokens, prefix_sharing=sharing)
+
+
+def make_engine(cfg, params, dev, *, slots, max_len, page_tokens=None, cluster=None):
+    """An engine on ``cluster`` (default ``h100_cluster(1)``), every modeled
+    device mapped onto the card."""
     return ServingEngine(
-        cfg, params, h100_cluster(1), devices=[dev], slots=slots, max_len=max_len,
-        plan_cfg=PlanConfig(method="moirai", time_limit=20.0, objective="throughput",
-                            serving_slots=slots),
-        eos_id=-1,
+        cfg, params, cluster or h100_cluster(1), devices=[dev], slots=slots, max_len=max_len,
+        plan_cfg=serve_plan(slots, page_tokens), eos_id=-1,
     )
+
+
+def seeded_requests(cfg, *, requests, max_new, seed=SEED, rid0=0) -> list:
+    """``requests`` prompts of 100-600 tokens from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [
+        Request(rid=rid0 + i, prompt=rng.integers(1, cfg.vocab_size, size=int(n)).tolist(),
+                max_new_tokens=max_new)
+        for i, n in enumerate(rng.integers(100, 601, size=requests))
+    ]
 
 
 def drive(eng, cfg, dev, *, requests, max_new, seed=SEED, rid0=0):
     """Submit ``requests`` seeded prompts of 100-600 tokens and serve them
     all; returns the requests and the wall time of the serving alone."""
-    rng = np.random.default_rng(seed)
-    reqs = [
-        Request(rid=rid0 + i, prompt=rng.integers(1, cfg.vocab_size, size=int(n)).tolist(),
-                max_new_tokens=max_new)
-        for i, n in enumerate(rng.integers(100, 601, size=requests))
-    ]
+    reqs = seeded_requests(cfg, requests=requests, max_new=max_new, seed=seed, rid0=rid0)
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize(dev)
@@ -1297,14 +1331,13 @@ def shared_prefix_requests(cfg, *, n, prefix, suffix, max_new, rid0=0, seed=SEED
 def make_paged_engine(cfg, params, dev, *, slots, max_len, page_tokens, sharing=True):
     return ServingEngine(
         cfg, params, h100_cluster(1), devices=[dev], slots=slots, max_len=max_len,
-        plan_cfg=PlanConfig(method="moirai", time_limit=20.0, objective="throughput",
-                            serving_slots=slots, kv_page_tokens=page_tokens,
-                            prefix_sharing=sharing),
-        eos_id=-1,
+        plan_cfg=serve_plan(slots, page_tokens, sharing), eos_id=-1,
     )
 
 
 def serve_reqs(eng, reqs, dev) -> float:
+    """Submit ``reqs`` to an engine or a router and serve them all; the
+    wall time of the serving alone."""
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize(dev)
@@ -1452,25 +1485,60 @@ SPEC_ALPHA = 0.75        # [serve-spec]'s pinned acceptance
 SPEC_SERVE_K = 4
 SPEC_TRUTH_PASSES = 8    # pinned_truth's limit
 DRAFT_LAYERS = 2         # [serve-spec]'s draft: the target's first 2 layers
+# one executor forward: the engine whose step ran it, the executor, the
+# clock's reading (a router's step), S and the kernel launches it made
+Forward = namedtuple("Forward", "engine executor clock s launches")
 
 
-class ForwardLog:
-    """Each forward of one stage executor, as (S, the kernel launches it
-    made): the executor synchronizes the card after every stage, so the
-    counts between the call's start and end are its own."""
+class EngineForwards:
+    """Every stage-executor forward while active, as a :class:`Forward`:
+    the engine is the one whose ``step`` ran the forward (a router steps its
+    replicas in turn), so executors a replan rebuilt count for their engine
+    too; the executor tells a speculative engine's target from its draft.
+    The executor synchronizes the card after every stage, so the counts
+    between a forward's start and end are its own."""
 
-    def __init__(self, executor):
+    def __init__(self, clock=lambda: 0):
         self.steps = []
-        fwd = executor.forward
+        self.clock = clock
 
-        def counted(tokens, *args, **kw):
+    def __enter__(self):
+        from repro_torch.serving.stage_executor import StageExecutor
+
+        self._saved = StageExecutor.forward, ServingEngine.step
+        fwd, step = self._saved
+        current, steps, clock = [None], self.steps, self.clock
+
+        def engine_step(eng):
+            current[0] = eng
+            try:
+                return step(eng)
+            finally:
+                current[0] = None
+
+        def counted(ex, tokens, *args, **kw):
             before = counts()
-            out = fwd(tokens, *args, **kw)
+            out = fwd(ex, tokens, *args, **kw)
             after = counts()
-            self.steps.append((int(tokens.shape[1]), {k: after[k] - before[k] for k in after}))
+            steps.append(Forward(current[0], ex, clock(), int(tokens.shape[1]),
+                                 {k: after[k] - before[k] for k in after}))
             return out
 
-        executor.forward = counted
+        StageExecutor.forward, ServingEngine.step = counted, engine_step
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.stage_executor import StageExecutor
+
+        StageExecutor.forward, ServingEngine.step = self._saved
+        return False
+
+    def of(self, eng=None, *, executor=None) -> list:
+        """The forwards of ``eng`` (or of ``executor``) as (S, launches),
+        for :func:`check_forwards`."""
+        return [(f.s, f.launches) for f in self.steps
+                if (eng is None or f.engine is eng)
+                and (executor is None or f.executor is executor)]
 
 
 def spec_path(cfg, k, paged) -> tuple:
@@ -1659,15 +1727,16 @@ def phase_parity_spec(dev) -> dict:
         for k in SPEC_K:
             eng = make_spec_engine(cfg, params, dev, cfg, draft, k=k,
                                    page_tokens=64 if paged else None, method="etf")
-            tlog, dlog = ForwardLog(eng.executor), ForwardLog(eng._draft_executor)
             reqs = mk()
             reset_counts()
-            wall = serve_reqs(eng, reqs, dev)
+            with EngineForwards() as fl:
+                wall = serve_reqs(eng, reqs, dev)
             got = counts()
+            tsteps, dsteps = fl.of(executor=eng.executor), fl.of(executor=eng._draft_executor)
             require(got, spec_path(cfg, k, paged), f"fp32 spec {kv} k={k}")
-            check_forwards(tlog.steps, cfg, f"spec {kv} k={k} target", paged=paged)
-            check_forwards(dlog.steps, cfg, f"spec {kv} k={k} draft")
-            verify[(paged, k)] = verify_launches(tlog.steps, k, paged)
+            check_forwards(tsteps, cfg, f"spec {kv} k={k} target", paged=paged)
+            check_forwards(dsteps, cfg, f"spec {kv} k={k} draft")
+            verify[(paged, k)] = verify_launches(tsteps, k, paged)
             if not verify[(paged, k)]:
                 raise AssertionError(f"spec {kv} k={k}: no [8, {k + 1}] verify forward ran")
             rep = eng.speculation_report()["classes"]["default"]
@@ -1680,7 +1749,7 @@ def phase_parity_spec(dev) -> dict:
             route = "decode kernel" if (k + 1) * 4 <= fa._decode_rows(64) else "chunk tile"
             log(f"{tag} fp32 spec {kv} k={k}, draft = target + {SPEC_NOISE} N(0,1): {wall:.2f}s, "
                 f"{spec_line(eng)}; tokens equal to the plain engine's (16 x 32); target "
-                f"forwards by S {forward_shapes(tlog.steps)}, draft {forward_shapes(dlog.steps)}; "
+                f"forwards by S {forward_shapes(tsteps)}, draft {forward_shapes(dsteps)}; "
                 f"verify [8, {k + 1}] on the {route}: {verify[(paged, k)]} flash launches; every "
                 f"forward {norms_per_forward(cfg)} RMSNorms on the rows kernel and {cfg.n_layers} "
                 f"flash calls on the route the rule gives; launches {got}")
@@ -1743,7 +1812,6 @@ def phase_serve_spec(dev) -> dict:
         f"allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
     mk = lambda: spec_requests(cfg)  # noqa: E731
     truth, first = pinned_truth(plain, spec, mk, dev, tag)
-    tlog, dlog = ForwardLog(spec.executor), ForwardLog(spec._draft_executor)
     plain_tok_s, spec_tok_s = [], []
     out = {}
     for rep_i in range(ENGINE_REPEATS):
@@ -1752,15 +1820,15 @@ def phase_serve_spec(dev) -> dict:
         plain_tok_s.append(sum(len(r.out_tokens) for r in reqs) / wall)
         spec._spec_stats = {}
         spec._proposal_hook = oracle_hook(truth, SPEC_ALPHA, SEED)
-        tlog.steps.clear()
-        dlog.steps.clear()
         reqs = mk()
         reset_counts()
-        wall = serve_reqs(spec, reqs, dev)
+        with EngineForwards() as fl:
+            wall = serve_reqs(spec, reqs, dev)
         got = counts()
+        tsteps, dsteps = fl.of(executor=spec.executor), fl.of(executor=spec._draft_executor)
         require(got, DENSE_PATH, "spec engine")
-        check_forwards(tlog.steps, cfg, "spec engine target")
-        check_forwards(dlog.steps, dcfg, "spec engine draft")
+        check_forwards(tsteps, cfg, "spec engine target")
+        check_forwards(dsteps, dcfg, "spec engine draft")
         for r in reqs:
             if not (r.done and len(r.out_tokens) == 32
                     and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
@@ -1772,13 +1840,13 @@ def phase_serve_spec(dev) -> dict:
         spec_tok_s.append(toks / wall)
         same = sum(x == y for r, b in zip(reqs, first) for x, y in zip(r.out_tokens, b))
         if rep_i == 0:
-            out = {"verify_launches": verify_launches(tlog.steps, SPEC_SERVE_K, False),
-                   "spec": rep, "target_shapes": forward_shapes(tlog.steps),
-                   "draft_shapes": forward_shapes(dlog.steps)}
+            out = {"verify_launches": verify_launches(tsteps, SPEC_SERVE_K, False),
+                   "spec": rep, "target_shapes": forward_shapes(tsteps),
+                   "draft_shapes": forward_shapes(dsteps)}
         log(f"{tag} run {rep_i + 1}/{ENGINE_REPEATS}: plain {plain_tok_s[-1]:.1f} gen tok/s; "
             f"spec k={SPEC_SERVE_K} {spec_tok_s[-1]:.1f} gen tok/s ({toks} tokens in {wall:.3f}s, "
-            f"{len(tlog.steps)} target forwards by S {forward_shapes(tlog.steps)}, draft "
-            f"{forward_shapes(dlog.steps)}), {spec_line(spec)} (expected "
+            f"{len(tsteps)} target forwards by S {forward_shapes(tsteps)}, draft "
+            f"{forward_shapes(dsteps)}), {spec_line(spec)} (expected "
             f"{rep['expected_tokens_per_round']:.3f} +- {rep['tolerance']:.3f} at a = "
             f"{SPEC_ALPHA}); tokens equal to the pinned truth; to the plain bf16 run's "
             f"{same}/{16 * 32}; launches {got}")
@@ -1814,8 +1882,8 @@ def phase_trace_spec(plain, spec, cfg, dev) -> None:
         spec.submit(r)
     spec.step()
     torch.cuda.synchronize(dev)
-    logs = [ForwardLog(spec.executor), ForwardLog(spec._draft_executor)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with EngineForwards() as fl, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(16):
             spec.step()
@@ -1823,11 +1891,504 @@ def phase_trace_spec(plain, spec, cfg, dev) -> None:
         wall = time.perf_counter() - t0
     report_trace(prof, wall, "[trace-spec]",
                  f"16 speculative engine steps (target forwards by S "
-                 f"{forward_shapes(logs[0].steps)}, draft {forward_shapes(logs[1].steps)}; "
+                 f"{forward_shapes(fl.of(executor=spec.executor))}, draft "
+                 f"{forward_shapes(fl.of(executor=spec._draft_executor))}; "
                  f"{spec_line(spec)})")
     spec.run_until_drained()
     if any(r.out_tokens != truth[r.rid] for r in reqs):
         raise AssertionError("[trace-spec]: the traced run left the pinned truth")
+
+
+# ------------------------------------------------------------ router, chaos
+ROUTER_SLOTS = 4          # [parity-router]'s engines: 4 slots, max_len 1024 (as [parity])
+ROUTER_MAX_LEN = 1024
+ROUTER_CRASH_STEP = 20    # router step of [parity-router]'s crash: every row decoding
+TERMINAL = ("finished", "shed", "expired", "failed")
+
+
+def check_launch_sum(fl, cfg, got, what, *, paged=False) -> int:
+    """Every forward of the run launched what one forward of ``cfg`` must
+    (:func:`check_forwards`), and the run's counters are exactly their sum:
+    Σ over replicas of forwards × the per-forward launches.  Returns the
+    number of forwards."""
+    steps = fl.of()
+    check_forwards(steps, cfg, what, paged=paged)
+    total = {k: sum(d[k] for _, d in steps) for k in got}
+    if total != got:
+        raise AssertionError(f"{what}: launches {got} are not the sum of the engines' forwards "
+                             f"{total}")
+    return len(steps)
+
+
+def check_terminal(router, reqs, what, n0=0) -> dict:
+    """Every submission of the run (the router's terminal records from
+    ``n0`` on) ended in exactly one typed terminal state, and the served
+    ones plus the shed / expired / failed counters (less earlier runs')
+    sum to the submissions."""
+    st = router.stats()
+    if not all(r.done and r.state in TERMINAL for r in reqs):
+        raise AssertionError(f"{what}: a request did not reach a terminal state: "
+                             f"{[(r.rid, r.state) for r in reqs]}")
+    ends = router.finished[n0:]
+    if sorted(id(r) for r in ends) != sorted(id(r) for r in reqs):
+        raise AssertionError(f"{what}: {len(ends)} terminal records for {len(reqs)} submissions")
+    c = st["counters"]
+    earlier = sum(r.state != "finished" for r in router.finished[:n0])
+    served = sum(r.state == "finished" for r in ends)
+    if served + c["shed"] + c["expired"] + c["failed"] - earlier != len(reqs):
+        raise AssertionError(f"{what}: {served} served and counters {c} do not sum to "
+                             f"{len(reqs)}")
+    return st
+
+
+def cache_bytes(eng) -> int:
+    """Bytes of the engine's KV caches on the card (0 before its first step
+    and after :meth:`ServingEngine.release_caches`)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(eng.caches or []))
+
+
+def service_router(cfg, params, dev, cluster, n, *, slots, max_len, page_tokens=None,
+                   dispatch="least_loaded", **router_kw):
+    """``Router.from_service_plan`` over ``n`` replicas the replica planner
+    chose on ``cluster``, every modeled device mapped onto the card."""
+    from repro_torch.core.modelgraph import transformer_graph
+    from repro_torch.core.replica import plan_replicas
+    from repro_torch.serving.router import Router, RouterConfig
+
+    pc = serve_plan(slots, page_tokens)
+    graph = transformer_graph(cfg, seq_len=max_len, granularity="block")
+    svc = plan_replicas(graph, cluster, pc, replicas=n)
+    return Router.from_service_plan(
+        cfg, params, cluster, svc, slots=slots, max_len=max_len, plan_cfg=pc,
+        config=RouterConfig(dispatch=dispatch, **router_kw), devices=[dev], eos_id=-1,
+    )
+
+
+def faulted_engine(cfg, params, dev, page_tokens):
+    """One engine on ``h100_cluster(3)`` (three modeled devices, one card)
+    replaying a crash of device 2 at step 2 (prefill chunks in flight), a
+    stall of device 1 at step 8 recovered at 11, and a degrade of link
+    (0, 1) at step 16 recovered at 19.  Each fault's engine state is kept:
+    the rows still mid-prefill when it landed."""
+    from repro_torch.serving.faults import FaultEvent, FaultInjector, FaultSchedule
+
+    eng = make_engine(cfg, params, dev, slots=ROUTER_SLOTS, max_len=ROUTER_MAX_LEN,
+                      page_tokens=page_tokens, cluster=h100_cluster(3))
+    eng.attach_fault_injector(FaultInjector(FaultSchedule([
+        FaultEvent(step=2, kind="device_crash", device=2),
+        FaultEvent(step=8, kind="device_stall", device=1, factor=0.3, duration=3),
+        FaultEvent(step=16, kind="link_degrade", link=(0, 1), factor=0.25, duration=3),
+    ])))
+    eng.mid_prefill = []
+    apply = eng.apply_fault
+
+    def recorded(ev):
+        eng.mid_prefill.append(sum(eng._prefill_done.get(s, 0) < len(t)
+                                   for s, t in eng._prefill_toks.items()))
+        return apply(ev)
+
+    eng.apply_fault = recorded
+    return eng
+
+
+FAULT_REPLANS = ["device 2 failed", "injected stall on device 1 (×0.3)", "device 1 recovered",
+                 "injected link fault (0, 1) (bw ×0.25)", "link (0, 1) recovered"]
+
+
+def phase_parity_router(dev) -> dict:
+    """fp32, 2 full-width llama3.2-1b layers (as [parity]), 4 slots, max_len
+    1024, 6 requests of 100-600 prompt tokens, 32 new, on ``h100_cluster(2)``
+    mapped onto the card, dense and paged (P 64): a one-replica
+    ``Router.from_service_plan``, a two-replica router under each dispatch
+    policy, and a two-replica router whose replica 0 loses its device at
+    router step 20 (its requests retried on replica 1 through a re-prefill)
+    all give the direct engine's tokens; so does one engine on three modeled
+    devices taking a crash mid-prefill, a stall and its recover, a link
+    degrade and its recover (every replan logged).  Every forward is held to
+    its launches, and each run's counters to the sum of its forwards.  Then
+    two replica retire → spawn cycles on ``h100_cluster(4)`` with the card's
+    memory before and after."""
+    from repro_torch.serving.faults import FaultEvent, FaultInjector, FaultSchedule
+
+    tag = "[parity-router]"
+    cfg = full_cfg(LLAMA, n_layers=2, dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    mk = lambda: seeded_requests(cfg, requests=6, max_new=32, seed=SEED + 1)  # noqa: E731
+    cluster = h100_cluster(2)
+    out, wants = {}, {}
+    for paged in (False, True):
+        kv = "paged P64" if paged else "dense"
+        pt = 64 if paged else None
+        direct = make_engine(cfg, params, dev, slots=ROUTER_SLOTS, max_len=ROUTER_MAX_LEN,
+                             page_tokens=pt, cluster=cluster)
+        reqs = mk()
+        serve_reqs(direct, reqs, dev)
+        want = wants[paged] = [r.out_tokens for r in reqs]
+        del direct
+        runs = (("1 replica", 1, "least_loaded", None), ("2 replicas", 2, "least_loaded", None),
+                ("2 replicas", 2, "shortest_prefill", None),
+                ("2 replicas, crash", 2, "least_loaded", ROUTER_CRASH_STEP))
+        for name, n, dispatch, crash in runs:
+            t0 = time.perf_counter()
+            router = service_router(cfg, params, dev, cluster, n, slots=ROUTER_SLOTS,
+                                    max_len=ROUTER_MAX_LEN, page_tokens=pt, dispatch=dispatch)
+            build = time.perf_counter() - t0
+            if crash is not None:
+                router.attach_fault_injector(FaultInjector(FaultSchedule([FaultEvent(
+                    step=crash, kind="device_crash", device=router.replicas[0].devices[0])])))
+            what = f"{kv} {name} {dispatch}"
+            reqs = mk()
+            reset_counts()
+            with EngineForwards(clock=lambda: router.step_count) as fl:
+                wall = serve_reqs(router, reqs, dev)
+            got = counts()
+            require(got, path(LLAMA, paged), what)
+            fwds = check_launch_sum(fl, cfg, got, what, paged=paged)
+            st = check_terminal(router, reqs, what)
+            if [r.out_tokens for r in reqs] != want:
+                diff = sum(r.out_tokens != w for r, w in zip(reqs, want))
+                raise AssertionError(f"{what}: fp32 tokens differ from the direct engine's in "
+                                     f"{diff} of 6 requests")
+            if st["finished_by_state"] != {"finished": 6}:
+                raise AssertionError(f"{what}: not every request finished: {st}")
+            per = {r.name: len(fl.of(r.engine)) for r in router.replicas}
+            if n == 2 and not all(per.values()):
+                raise AssertionError(f"{what}: a replica ran no forward: {per}")
+            note = ""
+            if crash is not None:
+                c = st["counters"]
+                if not (c["crashed_replicas"] == 1 and c["retried"] >= 1):
+                    raise AssertionError(f"{what}: the crash did not retire replica 0 and retry "
+                                         f"its requests: {c}")
+                survivor = router.replicas[1].engine
+                resumed = sum(1 for f in fl.steps if f.engine is survivor and f.clock > crash
+                              and f.s > 1)
+                if not resumed:
+                    raise AssertionError(f"{what}: no chunk forward re-prefilled the retried rows")
+                note = (f"; crash at router step {crash}: counters {c}, {resumed} chunk forwards "
+                        "on replica1 after it (the retried rows' re-prefill)")
+                out[("retried", paged)] = c["retried"]
+            out[(name, dispatch, paged)] = got
+            log(f"{tag} fp32 2 layers {what}: built in {build:.2f}s, served in {wall:.2f}s over "
+                f"{router.step_count} router steps; tokens equal to the direct engine's (6 x 32); "
+                f"forwards by replica {per}, {fwds} in all, each with its launches; launches "
+                f"{got}{note}")
+            del router
+        eng = faulted_engine(cfg, params, dev, pt)
+        reqs = mk()
+        reset_counts()
+        with EngineForwards() as fl:
+            serve_reqs(eng, reqs, dev)
+        got = counts()
+        check_launch_sum(fl, cfg, got, f"{kv} faulted engine", paged=paged)
+        reasons = [h["reason"] for h in eng.replan_history]
+        kinds = [e["kind"] for e in eng.fault_log]
+        if reasons != FAULT_REPLANS or kinds != ["device_crash", "device_stall", "recover",
+                                                 "link_degrade", "recover"]:
+            raise AssertionError(f"{kv} faulted engine: faults {kinds}, replans {reasons}")
+        if not eng.mid_prefill[0]:
+            raise AssertionError(f"{kv} faulted engine: the crash found no row mid-prefill")
+        if [r.out_tokens for r in reqs] != want:
+            raise AssertionError(f"{kv} faulted engine: fp32 tokens differ from the direct "
+                                 "engine's")
+        log(f"{tag} fp32 2 layers {kv} engine on h100-x3, faults {kinds} (rows mid-prefill when "
+            f"each landed: {eng.mid_prefill}), replans {reasons}: tokens equal to the direct "
+            f"engine's; launches {got}")
+        out[("faults", paged)] = got
+        del eng
+        free_card()
+    out["memory"] = retire_spawn_cycles(cfg, params, dev, mk, wants[False])
+    del params
+    free_card()
+    return out
+
+
+def retire_spawn_cycles(cfg, params, dev, mk, want) -> dict:
+    """Two replicas of two modeled devices each on ``h100_cluster(4)``
+    (health floor 0.75) serve the parity traffic while two cycles run:
+    (1) a stall of device 1 at ×0.25 drains replica0 (health 0.625), and
+    the pool replan spawns replica2 on its healthy device 0 through
+    ``engine_factory``; the traffic is submitted again; (2) a crash of
+    device 0 retires replica2 (its last device: its requests are retried),
+    and a stall of device 3 drains replica1, whose device 2 hosts the
+    spawned replica3.  The card's allocated memory is read before and
+    after each cycle: a retired replica's KV caches must not stay resident.
+    Every request's tokens must be the direct engine's."""
+    from repro_torch.serving.faults import FaultEvent
+    from repro_torch.serving.router import Replica, Router, RouterConfig
+
+    tag = "[parity-router]"
+    cluster = h100_cluster(4)
+    spawns = []
+
+    def factory(devs):
+        t0 = time.perf_counter()
+        eng = make_engine(cfg, params, dev, slots=ROUTER_SLOTS, max_len=ROUTER_MAX_LEN,
+                          cluster=cluster.subcluster(devs))
+        spawns.append((list(devs), eng.placement_result.method, len(eng.executor.stages),
+                       time.perf_counter() - t0))
+        return eng
+
+    router = Router([Replica(name=f"replica{i}", devices=[2 * i, 2 * i + 1],
+                             engine=factory([2 * i, 2 * i + 1])) for i in range(2)],
+                    engine_factory=factory, config=RouterConfig(health_floor=0.75,
+                                                                retry_backoff=1))
+    spawns.clear()
+    reqs = mk()
+    for r in reqs:
+        router.submit(r)
+    for _ in range(3):
+        router.step()
+    torch.cuda.synchronize(dev)
+
+    def submit_again():
+        for r in mk():
+            r.rid += 100
+            reqs.append(r)
+            router.submit(r)
+
+    def live() -> str:
+        return ", ".join(f"{r.name} {r.state} {cache_bytes(r.engine) / 1e6:.1f} MB"
+                         for r in router.replicas)
+
+    def spawned(n):
+        """Step until the n-th spawn, then 3 steps more: the spawned
+        replica takes work and allocates its caches."""
+        for _ in range(200):
+            if sum(e["kind"] == "replica_spawn" for e in router.events) >= n:
+                break
+            router.step()
+        else:
+            raise AssertionError(f"{tag} cycles: no spawn #{n}: {router.events[-8:]}")
+        if n == 1:
+            submit_again()
+        for _ in range(3):
+            router.step()
+        torch.cuda.synchronize(dev)
+
+    per_cache = cache_bytes(router.replicas[0].engine)
+    mem = [torch.cuda.memory_allocated(dev)]
+    log(f"{tag} cycles: before, {live()}; card memory allocated {mem[0] / 1e9:.4f} GB; one "
+        f"replica's KV caches {per_cache / 1e6:.1f} MB")
+    router.apply_fault(FaultEvent(step=0, kind="device_stall", device=1, factor=0.25))
+    spawned(1)
+    mem.append(torch.cuda.memory_allocated(dev))
+    log(f"{tag} cycles: after cycle 1 (drain of replica0 → spawn on [0]; the traffic again), "
+        f"{live()}; card "
+        f"memory allocated {mem[1] / 1e9:.4f} GB")
+    router.apply_fault(FaultEvent(step=0, kind="device_crash", device=0))
+    router.apply_fault(FaultEvent(step=0, kind="device_stall", device=3, factor=0.25))
+    spawned(2)
+    mem.append(torch.cuda.memory_allocated(dev))
+    log(f"{tag} cycles: after cycle 2 (crash of replica2, drain of replica1 → spawn on [2]), "
+        f"{live()}; card memory allocated {mem[2] / 1e9:.4f} GB")
+    router.run_until_drained()
+    st = check_terminal(router, reqs, "retire/spawn cycles")
+    kinds = [e["kind"] for e in router.events]
+    if not (st["counters"]["crashed_replicas"] == 1 and kinds.count("replica_spawn") == 2
+            and kinds.count("drain_complete") == 2):
+        raise AssertionError(f"{tag} cycles: {st['counters']}, events {kinds}")
+    if [r.out_tokens for r in reqs] != want + want:
+        raise AssertionError(f"{tag} cycles: fp32 tokens differ from the direct engine's")
+    retired = [r for r in router.replicas if r.state == "retired"]
+    if any(r.engine.caches is not None for r in retired):
+        raise AssertionError(f"{tag} cycles: a retired replica kept its caches")
+    live_bytes = sum(cache_bytes(r.engine) for r in router.replicas)
+    if mem[2] > mem[0] - 2 * per_cache + live_bytes + per_cache // 2:
+        raise AssertionError(f"{tag} cycles: card memory grew over the cycles: {mem}")
+    for devs, method, stages, secs in spawns:
+        log(f"{tag} spawn on {devs}: plan {method}, {stages} stage(s), engine built in "
+            f"{secs:.3f}s")
+    log(f"{tag} cycles: card memory allocated {[round(m / 1e9, 4) for m in mem]} GB before, "
+        f"after cycle 1, after cycle 2; {len(retired)} retired replicas released "
+        f"{len(retired) * per_cache / 1e6:.1f} MB of KV caches; tokens equal to the direct "
+        f"engine's; counters {st['counters']}")
+    return {"memory_allocated": mem, "cache_bytes": per_cache, "spawns": spawns}
+
+
+def phase_parity_router_moe(dev) -> dict:
+    """fp32, 2 full-width qwen2-moe-a2.7b layers: two replicas on
+    ``h100_cluster(2)``, both on the card and stepped in turn, give one
+    direct engine's tokens, and every forward of both launches the grouped
+    GEMM 3 times a layer: the replicas share its per-card scratch."""
+    tag = "[parity-router-moe]"
+    cfg = full_cfg(MOE, n_layers=2, dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    mk = lambda: seeded_requests(cfg, requests=6, max_new=32, seed=SEED + 1)  # noqa: E731
+    cluster = h100_cluster(2)
+    direct = make_engine(cfg, params, dev, slots=ROUTER_SLOTS, max_len=ROUTER_MAX_LEN,
+                         cluster=cluster)
+    reqs = mk()
+    serve_reqs(direct, reqs, dev)
+    want = [r.out_tokens for r in reqs]
+    del direct
+    router = service_router(cfg, params, dev, cluster, 2, slots=ROUTER_SLOTS,
+                            max_len=ROUTER_MAX_LEN)
+    reqs = mk()
+    reset_counts()
+    with EngineForwards() as fl:
+        wall = serve_reqs(router, reqs, dev)
+    got = counts()
+    require(got, path(MOE, paged=False), "moe router")
+    fwds = check_launch_sum(fl, cfg, got, "moe router")
+    check_terminal(router, reqs, "moe router")
+    per = {r.name: sum(d["grouped_gemm"] for _, d in fl.of(r.engine)) for r in router.replicas}
+    if not all(per.values()):
+        raise AssertionError(f"{tag} a replica never launched the grouped GEMM: {per}")
+    if [r.out_tokens for r in reqs] != want:
+        raise AssertionError(f"{tag} fp32 tokens differ from the direct engine's")
+    log(f"{tag} fp32 2 layers, 2 replicas in turn: {wall:.2f}s, tokens equal to the direct "
+        f"engine's (6 x 32); {fwds} forwards, each with 3 x {cfg.n_layers} grouped GEMMs; "
+        f"grouped GEMM launches by replica {per}; launches {got}")
+    del router, params
+    free_card()
+    return got
+
+
+def chaos_schedule(path):
+    """The chaos run's schedule over two single-device replicas, saved to
+    ``path``: a degrade of link (0, 1) at router step 1, recovered at 3 (no
+    replica owns that link, so the router logs it ignored); a stall of
+    device 0 to x0.6 at step 2, recovered at 4 (above the 0.5 health floor:
+    replica0 stays in service; [parity-router] drains a replica below it);
+    a crash of device 1 at step 6, once both replicas hold requests, whose
+    requests replica0 then serves."""
+    from repro_torch.serving.faults import FaultEvent, FaultSchedule
+
+    s = FaultSchedule([
+        FaultEvent(step=1, kind="link_degrade", link=(0, 1), factor=0.5, duration=2),
+        FaultEvent(step=2, kind="device_stall", device=0, factor=0.6, duration=2),
+        FaultEvent(step=6, kind="device_crash", device=1),
+    ], name="chip-chaos")
+    s.save(str(path))
+    return s
+
+
+ROUTER_CLI = {
+    "two": ["--replicas", "2", "--cluster-size", "2"],
+    "auto": ["--replicas", "auto", "--cluster-size", "4"],
+    "chaos": ["--replicas", "2", "--cluster-size", "2", "--fault-schedule"],
+}
+
+
+def phase_serve_router(dev) -> dict:
+    """bf16, full-width llama3.2-1b: the serve CLI with ``--replicas 2
+    --cluster-size 2``, ``--replicas auto --cluster-size 4`` and ``--replicas
+    2 --cluster-size 2 --fault-schedule`` (:func:`chaos_schedule`); each
+    run's submissions all end in one typed terminal state, the counters sum
+    to them, and the kernel launches are the sum of the replicas' forwards.
+    Then phase 4's traffic (16 requests of 100-600 prompt tokens, 32 new)
+    through one engine of 16 slots and a two-replica router of 8 slots each
+    on the one card, in turns, three runs each: the router's host cost, not
+    a replica speed-up (the replicas share the card and are stepped one
+    after another)."""
+    import tempfile
+
+    tag = "[serve-router]"
+    cfg = full_cfg(LLAMA)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sched_path = Path(tmp) / "chaos.json"
+        sched = chaos_schedule(sched_path)
+        log(f"{tag} chaos schedule '{sched.name}': "
+            + "; ".join(f"s{e.step} {e.kind} " + (f"device {e.device}" if e.device is not None
+                                                  else f"link {e.link}")
+                        + (f" x{e.factor:.3f}" if e.kind in ("device_stall", "link_degrade")
+                           else "") + (f" for {e.duration}" if e.duration else "")
+                        for e in sched))
+        for name, flags in ROUTER_CLI.items():
+            argv = ["--arch", LLAMA, *flags] + ([str(sched_path)] if name == "chaos" else [])
+            log(f"{tag} repro_torch.launch.serve.main({argv})")
+            reset_counts()
+            t0 = time.perf_counter()
+            with EngineForwards() as fl:
+                router, reqs = serve.main(argv)
+            torch.cuda.synchronize(dev)
+            got = counts()
+            require(got, DENSE_PATH, f"router CLI {name}")
+            fwds = check_launch_sum(fl, cfg, got, f"router CLI {name}")
+            st = check_terminal(router, reqs, f"router CLI {name}")
+            if not all(len(r.out_tokens) == r.max_new_tokens for r in reqs
+                       if r.state == "finished"):
+                raise AssertionError(f"router CLI {name}: a finished request is short")
+            per = {r.name: len(fl.of(r.engine)) for r in router.replicas}
+            if name == "chaos":
+                c = st["counters"]
+                if not (c["crashed_replicas"] == 1 and c["retried"] >= 1):
+                    raise AssertionError(f"router CLI chaos: the crash retired no replica: {c}")
+            log(f"{tag} cli {name}: {time.perf_counter() - t0:.1f}s incl. init and plan, "
+                f"{len(router.replicas)} replicas {[(r.name, r.devices, r.state) for r in router.replicas]}, "
+                f"{fwds} forwards by replica {per}, each with its launches; counters "
+                f"{st['counters']}, terminal {st['finished_by_state']}; launches {got}")
+            out[name] = got
+            del router
+            free_card()
+    out["cli"] = out["two"]
+    out.update(router_tok_s(cfg, dev))
+    return out
+
+
+def router_tok_s(cfg, dev) -> dict:
+    """Phase 4's traffic through one engine (16 slots) and a two-replica
+    router (8 slots each) on the one card, three runs each in turns; the
+    card's memory before and after the router's construction (the replicas
+    share the weights)."""
+    tag = "[serve-router]"
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine = make_engine(cfg, params, dev, slots=16, max_len=2048)
+    torch.cuda.synchronize(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    router = service_router(cfg, params, dev, h100_cluster(2), 2, slots=8, max_len=2048)
+    build = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    mem1 = torch.cuda.memory_allocated(dev)
+    log(f"{tag} two-replica router (8 slots each) built in {build:.2f}s: card memory allocated "
+        f"{mem0 / 1e9:.4f} GB before, {mem1 / 1e9:.4f} GB after (+{(mem1 - mem0) / 1e6:.2f} MB "
+        f"for both replicas: the weights are shared)")
+    eng_tok_s, router_tok_s, same = [], [], []
+    for rep in range(ENGINE_REPEATS):
+        reqs = seeded_requests(cfg, requests=16, max_new=32, rid0=100 * rep)
+        with EngineForwards() as efl:
+            wall = serve_reqs(engine, reqs, dev)
+        eng_tok_s.append(sum(len(r.out_tokens) for r in reqs) / wall)
+        ref = [r.out_tokens for r in reqs]
+        rreqs = seeded_requests(cfg, requests=16, max_new=32, rid0=100 * rep)
+        n0 = len(router.finished)
+        reset_counts()
+        with EngineForwards() as fl:
+            wall = serve_reqs(router, rreqs, dev)
+        got = counts()
+        require(got, DENSE_PATH, "router tok/s")
+        check_launch_sum(fl, cfg, got, "router tok/s")
+        check_terminal(router, rreqs, "router tok/s", n0)
+        for r in rreqs:
+            if not (r.state == "finished" and len(r.out_tokens) == 32
+                    and all(0 <= t < cfg.vocab_size for t in r.out_tokens)):
+                raise AssertionError(f"request {r.rid} not served right: {r.out_tokens}")
+        router_tok_s.append(sum(len(r.out_tokens) for r in rreqs) / wall)
+        same.append(sum(x == y for r, b in zip(rreqs, ref) for x, y in zip(r.out_tokens, b)))
+        per = {r.name: len(fl.of(r.engine)) for r in router.replicas}
+        log(f"{tag} run {rep + 1}/{ENGINE_REPEATS}: engine (16 slots) {eng_tok_s[-1]:.1f} gen "
+            f"tok/s ({len(efl.steps)} forwards); router (2 x 8 slots) {router_tok_s[-1]:.1f} gen "
+            f"tok/s ({wall:.3f}s, "
+            f"{router.step_count} router steps so far, forwards by replica {per}); tokens equal "
+            f"to the engine's bf16 run {same[-1]}/{16 * 32}")
+    torch.cuda.synchronize(dev)
+    kv = {r.name: cache_bytes(r.engine) for r in router.replicas}
+    med_e, med_r = float(np.median(eng_tok_s)), float(np.median(router_tok_s))
+    spread = lambda xs: (max(xs) - min(xs)) / float(np.median(xs))  # noqa: E731
+    log(f"{tag} gen tok/s over {ENGINE_REPEATS} runs in turns: engine "
+        f"{[round(x, 1) for x in eng_tok_s]} (median {med_e:.1f}, spread {spread(eng_tok_s):.3f}), "
+        f"router {[round(x, 1) for x in router_tok_s]} (median {med_r:.1f}, spread "
+        f"{spread(router_tok_s):.3f}), router / engine {med_r / med_e:.3f}; KV caches by replica "
+        f"{ {k: round(v / 1e6, 1) for k, v in kv.items()} } MB, the engine's "
+        f"{cache_bytes(engine) / 1e6:.1f} MB; card memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.4f} GB; host: {host_line()}")
+    del engine, router, params
+    free_card()
+    return {"engine_tok_s": eng_tok_s, "router_tok_s": router_tok_s, "replica_kv_bytes": kv,
+            "router_build_bytes": mem1 - mem0}
 
 
 # ---------------------------------------------------------------- SSM/hybrid
@@ -2723,6 +3284,9 @@ def main() -> int:
     served_paged = timed(phase_serve_paged, dev)
     parity_spec = timed(phase_parity_spec, dev)
     served_spec = timed(phase_serve_spec, dev)
+    parity_router = timed(phase_parity_router, dev)
+    parity_router_moe = timed(phase_parity_router_moe, dev)
+    served_router = timed(phase_serve_router, dev)
     timed(phase_parity, dev, MOE)
     served_moe = timed(phase_serve, dev, MOE)
     served_moe_paged = timed(phase_serve_paged, dev, MOE)
@@ -2880,6 +3444,16 @@ def main() -> int:
                                  torch.bfloat16)],
         },
     })
+    # this slice's path: the launches of the --replicas 2 CLI run (bf16,
+    # dense), of [parity-router]'s paged two-replica run (fp32) and of
+    # [parity-router-moe]'s two MoE replicas (fp32)
+    paged_router = parity_router[("2 replicas", "least_loaded", True)]
+    router_runs = dict(served_router["cli"], grouped_gemm=parity_router_moe["grouped_gemm"],
+                       flash_attention_paged=paged_router["flash_attention_paged"],
+                       flash_attention_paged_decode=paged_router["flash_attention_paged_decode"])
+    for row in kernels:
+        if row["name"] in router_runs:
+            row["router_launches"] = router_runs[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     log(card["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -242,6 +242,18 @@ class PlanConfig:
     max_replicas: Optional[int] = None
 
 
+class NoFeasiblePlacement(ValueError):
+    """:func:`plan` found no placement of the graph that fits the cluster
+    (device memory, with every serving slot's KV cache resident): a loss no
+    re-plan can absorb.  A ``ValueError``, typed so that a caller (the
+    router) can tell this loss from a fault of the program."""
+
+
+class NoSurvivingDevices(NoFeasiblePlacement):
+    """:func:`replan` found every device of the cluster failed (a
+    ``ValueError`` in the reference too)."""
+
+
 def plan(
     graph: OpGraph,
     cluster: ClusterSpec,
@@ -465,6 +477,14 @@ def plan(
         raise ValueError(f"unknown placement method {cfg.method!r}")
 
     # ------------------------------------------------- lift to original ids
+    # the solve and every heuristic came back without a placement that fits
+    # (the reference fails here with a bare ``KeyError``)
+    unplaced = [cid for cid in members if cid not in coarse_placement]
+    if unplaced:
+        raise NoFeasiblePlacement(
+            f"no placement of {len(work)} nodes fits {cluster.name!r} "
+            f"({len(unplaced)} unplaced; {res.method}: {res.status})"
+        )
     placement = {
         orig: coarse_placement[cid]
         for cid, origs in members.items()
@@ -531,7 +551,7 @@ def replan(
         raise ValueError(f"failed devices {failed} out of range for k={cluster.k}")
     surviving = [i for i in range(cluster.k) if i not in failed]
     if not surviving:
-        raise ValueError("no surviving devices to re-plan on")
+        raise NoSurvivingDevices("no surviving devices to re-plan on")
     derate = {
         i: float(f)
         for i, f in (derate or {}).items()

@@ -8,14 +8,16 @@ batch engine, on the H100 (or the CPU with ``--device cpu``).
         --kv-page-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --draft llama3.2-1b --spec-tokens 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --replicas 2 --cluster-size 2 --fault-schedule chaos.json
 
-It takes the reference's single-engine flags, paged KV's among them
-(``--kv-page-tokens``, ``--no-prefix-sharing``, ``--kv-residency``) and
-speculation's (``--draft``, ``--spec-tokens``, ``--acceptance-rate``: the
-draft's random weights from ``--seed`` + 1, and ``[spec]`` lines with the
-observed acceptance after the run); the router's (``--slo-p99``,
-``--dispatch``) come with its slice.  Serving runs at
-full width unless ``--smoke``, with per-layer params (``scan_layers=False``,
+It takes the reference's flags: paged KV's (``--kv-page-tokens``,
+``--no-prefix-sharing``, ``--kv-residency``), speculation's (``--draft``,
+``--spec-tokens``, ``--acceptance-rate``: the draft's random weights from
+``--seed`` + 1, and ``[spec]`` lines with the observed acceptance after the
+run), the multi-replica service's (``--replicas auto|N``, ``--slo-p99``,
+``--dispatch``) and the chaos harness's (``--fault-schedule``).  Serving
+runs at full width unless ``--smoke``, with per-layer params (``scan_layers=False``,
 the layout the engine serves from — the reference CLI keeps the config's
 ``scan_layers=True`` there and its executor refuses it), random weights
 from ``--seed``, and ``attention_impl="pallas"``: attention and every
@@ -25,8 +27,23 @@ cards.  The engine runs with the adaptive observe → derate → replan loop
 closed; after the run the CLI prints the straggler report, every adaptation
 decision and every committed replan.
 
-Not ported yet: ``--replicas`` other than 1 (ROADMAP A8) and
-``--fault-schedule`` (A8) exit with an error naming their ROADMAP item.
+``--replicas auto|N`` switches to the multi-replica service: the replica
+planner (:func:`repro_torch.core.replica.plan_replicas`) picks the replica
+count and each replica's devices, and the SLO-aware router
+(:class:`repro_torch.serving.router.Router`) dispatches the requests,
+spread over its tiers, across one engine a replica.  Modeled devices map
+onto the visible cards modulo their count: on one card every replica shares
+the device, the weights and the current stream, and the router steps them
+one after another.  The CLI then prints the service plan, the per-tier
+latencies, the router's counters, terminal states and event log.
+
+``--fault-schedule PATH`` replays a chaos scenario
+(:class:`repro_torch.serving.faults.FaultSchedule` JSON, written by
+``FaultSchedule([...]).save(path)`` or ``FaultSchedule.random(...)``) into
+the single engine, or routed across the replicas, and prints the
+injections after the run.  A ``device_crash`` is a modeled fault: the
+engine re-plans on the survivors and rebuilds its stages; nothing on the
+card fails.
 """
 
 from __future__ import annotations
@@ -45,11 +62,6 @@ from repro_torch.models.model import build_model
 from repro_torch.serving.adaptation import AdaptationConfig
 from repro_torch.serving.engine import Request, ServingEngine
 
-_NOT_PORTED = {
-    "replicas": "--replicas other than 1 is not yet ported (ROADMAP A8)",
-    "fault_schedule": "--fault-schedule is not yet ported (ROADMAP A8)",
-}
-
 
 def serving_config(arch: str, smoke: bool):
     """``arch``'s config as the CLI serves it: per-layer params and the
@@ -62,8 +74,10 @@ def serving_config(arch: str, smoke: bool):
     )
 
 
-def build_engine(args) -> ServingEngine:
-    """The engine the CLI serves with, from parsed arguments."""
+def serving_setup(args):
+    """What every serving path of the CLI shares, from parsed arguments:
+    the config, the torch devices, the random weights, the modeled cluster
+    and the plan config."""
     cfg = serving_config(args.arch, args.smoke)
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -91,6 +105,12 @@ def build_engine(args) -> ServingEngine:
         spec_tokens=args.spec_tokens if args.draft else 0,
         acceptance_rate=args.acceptance_rate,
     )
+    return cfg, devices, params, cluster, plan_cfg
+
+
+def build_engine(args) -> ServingEngine:
+    """The engine the CLI serves with, from parsed arguments."""
+    cfg, devices, params, cluster, plan_cfg = serving_setup(args)
     draft_kw = {}
     if args.draft:
         draft_cfg = serving_config(args.draft, args.smoke)
@@ -119,6 +139,125 @@ def build_engine(args) -> ServingEngine:
         batching=args.batching,
         oversize=args.oversize,
     )
+
+
+def cli_requests(args) -> list:
+    """The CLI's traffic: ``--requests`` short prompts."""
+    return [
+        Request(rid=i, prompt=[1 + i % 7, 2, 3, 4], max_new_tokens=args.max_new_tokens)
+        for i in range(args.requests)
+    ]
+
+
+def attach_schedule(target, path: str):
+    """Replay the chaos scenario at ``path`` into ``target`` (an engine or
+    the router); returns the injector."""
+    from repro_torch.serving.faults import FaultInjector, FaultSchedule
+
+    schedule = FaultSchedule.load(path)
+    injector = FaultInjector(schedule)
+    target.attach_fault_injector(injector)
+    print(
+        f"[serve] chaos: replaying '{schedule.name}' "
+        f"({len(schedule)} events, horizon {schedule.horizon} steps)"
+    )
+    return injector
+
+
+def print_injections(injector) -> None:
+    print(f"[chaos] {len(injector.log)} injections")
+    for entry in injector.log:
+        e = entry["event"]
+        tgt = e["device"] if e["device"] is not None else tuple(e["link"])
+        print(
+            f"[chaos]   s{entry['clock']:<4d} {e['kind']:<14s} "
+            f"target={tgt} -> {entry['status']}"
+        )
+
+
+def serve_replicas(args):
+    """The --replicas path: plan the service, run the router, print the
+    operator view (service plan, event log, per-tier latencies).  Returns
+    the router and the requests; exits non-zero when a request is left
+    without a terminal state."""
+    from repro_torch.core.modelgraph import transformer_graph
+    from repro_torch.core.replica import plan_replicas
+    from repro_torch.serving.router import Router, RouterConfig
+
+    cfg, devices, params, cluster, plan_cfg = serving_setup(args)
+    # the replica planner must score the SAME graph the engines execute
+    graph = transformer_graph(cfg, seq_len=args.max_len, granularity="block")
+    plan_cfg = dataclasses.replace(
+        plan_cfg,
+        replicas="auto" if args.replicas == "auto" else int(args.replicas),
+        slo_p99=args.slo_p99,
+    )
+    t0 = time.perf_counter()
+    svc = plan_replicas(graph, cluster, plan_cfg)
+    t_plan = time.perf_counter() - t0
+    print(
+        f"[serve] service plan ({t_plan:.1f}s): {svc.n_replicas} replica(s) "
+        f"on {cluster.name}, total {svc.total_rps:.1f} req/s steady, "
+        f"p99 {svc.p99_s*1e3:.1f} ms @ {svc.extra['offered_rps']:.1f} req/s "
+        f"offered, slo_ok={svc.slo_ok}"
+    )
+    for i, spec in enumerate(svc.replicas):
+        print(
+            f"[serve]   replica{i}: devices={spec.devices} "
+            f"bneck={spec.bottleneck_s*1e3:.2f} ms "
+            f"({spec.throughput_rps:.1f} req/s)"
+        )
+    router = Router.from_service_plan(
+        cfg, params, cluster, svc,
+        slots=args.slots, max_len=args.max_len, plan_cfg=plan_cfg,
+        config=RouterConfig(dispatch=args.dispatch),
+        devices=devices,
+        eos_id=-1,
+        admission=args.admission, batching=args.batching,
+        oversize=args.oversize,
+    )
+    injector = (
+        attach_schedule(router, args.fault_schedule) if args.fault_schedule else None
+    )
+    t0 = time.perf_counter()
+    reqs = cli_requests(args)
+    n_tiers = router.config.tiers
+    for i, r in enumerate(reqs):
+        router.submit(r, tier=i % n_tiers)   # spread load over the tiers
+    router.run_until_drained()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out_tokens) for r in reqs)
+    print(f"[serve] {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s) "
+          f"across {sum(r.state != 'retired' for r in router.replicas)} "
+          f"live replica(s) ({devices[0]})")
+    for t, row in router.latency_report().items():
+        print(
+            f"[serve]   tier {t}: {int(row['count'])} done, "
+            f"mean {row['mean_steps']:.1f} / max {int(row['max_steps'])} "
+            "router steps"
+        )
+    stats = router.stats()
+    print(f"[router] counters: {stats['counters']} slo_ok={stats['slo_ok']}")
+    print(f"[router] terminal states: {stats['finished_by_state']}")
+    print(f"[router] {len(router.events)} events")
+    for ev in router.events:
+        detail = " ".join(
+            f"{k_}={v_}" for k_, v_ in ev.items()
+            if k_ not in ("step", "kind")
+        )
+        print(f"[router]   s{ev['step']:<4d} {ev['kind']:<14s} {detail}")
+    if injector is not None:
+        print_injections(injector)
+    stranded = [r.rid for r in reqs if not r.done]
+    if stranded:
+        # no live replica is left to serve them (a drained device never
+        # rejoins the pool): the run did not serve its traffic
+        raise SystemExit(
+            f"[serve] {len(stranded)} of {len(reqs)} requests reached no "
+            f"terminal state (rids {stranded}); live replicas: "
+            f"{[r.name for r in router.replicas if r.state != 'retired']}"
+        )
+    return router, reqs
 
 
 def main(argv=None):
@@ -230,13 +369,25 @@ def main(argv=None):
     )
     ap.add_argument(
         "--fault-schedule", default=None, metavar="PATH",
-        help="replay a chaos scenario (FaultSchedule JSON): not yet ported "
-        "(ROADMAP A8)",
+        help="replay this chaos scenario (FaultSchedule JSON) into the run: "
+        "scheduled device crashes/stalls and link degradations fire at their "
+        "scripted engine/router steps (see repro_torch.serving.faults)",
     )
     ap.add_argument(
         "--replicas", default="1", metavar="auto|N",
-        help="serve N replicas behind the SLO-aware router: not yet ported "
-        "(ROADMAP A8); only 1",
+        help="serve N model replicas behind the SLO-aware router, or 'auto' "
+        "to let the replica planner pick the count that maximizes total "
+        "steady req/s under --slo-p99 (default 1 = single engine, no router)",
+    )
+    ap.add_argument(
+        "--slo-p99", type=float, default=None, metavar="SECONDS",
+        help="p99 request-latency SLO the replica planner's simulation must "
+        "meet (only with --replicas; no SLO = pure throughput maximization)",
+    )
+    ap.add_argument(
+        "--dispatch", choices=("least_loaded", "shortest_prefill"),
+        default="least_loaded",
+        help="router dispatch policy across replicas (only with --replicas)",
     )
     ap.add_argument(
         "--cluster-size", type=int, default=None, metavar="K",
@@ -245,12 +396,15 @@ def main(argv=None):
         "bigger than this host)",
     )
     args = ap.parse_args(argv)
-    for name, msg in _NOT_PORTED.items():
-        val = getattr(args, name)
-        if val and val not in ("1", 0):
-            ap.error(msg)
+    if args.replicas != "1":
+        if args.draft:
+            ap.error("--draft is the single-engine path (not with --replicas)")
+        return serve_replicas(args)
 
     engine = build_engine(args)
+    injector = (
+        attach_schedule(engine, args.fault_schedule) if args.fault_schedule else None
+    )
     print(
         f"[serve] {args.arch}: placement={engine.placement_result.method} "
         f"stages={len(engine.executor.stages)} devices={len(engine.devices)} "
@@ -270,10 +424,7 @@ def main(argv=None):
         )
     )
     t0 = time.perf_counter()
-    reqs = [
-        Request(rid=i, prompt=[1 + i % 7, 2, 3, 4], max_new_tokens=args.max_new_tokens)
-        for i in range(args.requests)
-    ]
+    reqs = cli_requests(args)
     for r in reqs:
         engine.submit(r)
     engine.run_until_drained()
@@ -328,6 +479,8 @@ def main(argv=None):
                 if h.get("link_derate") else ""
             )
         )
+    if injector is not None:
+        print_injections(injector)
     return engine, reqs
 
 

@@ -1467,6 +1467,14 @@ class ServingEngine:
             "drained": drained,
         }
 
+    def release_caches(self) -> None:
+        """Drop the KV caches (the draft's too) from the devices: a retired
+        replica serves nothing more, and a replacement spawned on the same
+        card needs the memory.  Host state (requests, logs, pool counters,
+        health) stays for the reports; the engine is not stepped again."""
+        self.caches = None
+        self._draft_caches = None
+
     def health(self) -> float:
         """Fraction of the replica's NOMINAL peak flops still effective:
         ``Σ surviving peak × derate ÷ Σ nominal peak``.  1.0 = pristine;

@@ -43,6 +43,9 @@ def test_every_module_imports_with_jax_blocked():
         "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '3', '--method', 'etf', '--prefill-chunk', '2',"
         " '--draft', 'llama3.2-1b', '--spec-tokens', '2'])\n"
+        # ...and the multi-replica router
+        "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"
+        " '--max-new-tokens', '2', '--method', 'etf', '--replicas', '2', '--cluster-size', '2'])\n"
         # ...and the MoE path
         "main(['--arch', 'qwen2-moe-a2.7b', '--smoke', '--device', 'cpu', '--requests', '2',"
         " '--max-new-tokens', '2', '--method', 'etf', '--prefill-chunk', '2'])\n"

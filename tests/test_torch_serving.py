@@ -210,7 +210,105 @@ def test_serve_cli_draft_on_cpu(capsys):
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in plain]
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--fault-schedule", "x.json"]])
-def test_serve_cli_refuses_unported_flags(flag):
+CLI = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--requests", "5",
+       "--max-new-tokens", "5", "--method", "etf"]
+
+
+@pytest.fixture(scope="module")
+def cli_plain():
+    """The single engine's tokens on the CLI's traffic (greedy, so any
+    placement and any replica gives them)."""
+    _, reqs = t_serve.main(CLI)
+    return [r.out_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--replicas", "2", "--cluster-size", "2"],
+    ["--replicas", "auto", "--cluster-size", "4", "--slo-p99", "1.0"],
+], ids=["two", "auto"])
+def test_serve_cli_replicas_on_cpu(capsys, cli_plain, flags):
+    router, reqs = t_serve.main(CLI + flags)
+    out = capsys.readouterr().out
+    n = len(router.replicas)
+    assert "[serve] service plan" in out and f"{n} replica(s) on h100-x" in out
+    assert all(f"[serve]   replica{i}: devices=" in out for i in range(n))
+    assert "[router] counters: {'shed': 0, 'expired': 0, 'retried': 0" in out
+    assert "[router] terminal states: {'finished': 5}" in out
+    assert "[serve]   tier 0: 2 done" in out and "policy=least_loaded" in out
+    assert [r.out_tokens for r in reqs] == cli_plain
+    if flags[1] == "2":
+        assert n == 2 and [r.devices for r in router.replicas] == [[0], [1]]
+        assert {e["replica"] for e in router.events if e["kind"] == "dispatch"} == {
+            "replica0", "replica1"}
+
+
+def test_serve_cli_dispatch_shortest_prefill(capsys, cli_plain):
+    router, reqs = t_serve.main(CLI + ["--replicas", "2", "--cluster-size", "2",
+                                       "--dispatch", "shortest_prefill"])
+    out = capsys.readouterr().out
+    assert router.config.dispatch == "shortest_prefill"
+    assert "policy=shortest_prefill" in out and "policy=least_loaded" not in out
+    assert [r.out_tokens for r in reqs] == cli_plain
+
+
+def _schedule(tmp_path, events):
+    from repro_torch.serving.faults import FaultEvent, FaultSchedule
+
+    path = tmp_path / "chaos.json"
+    FaultSchedule([FaultEvent(**e) for e in events], name="cli").save(str(path))
+    return str(path)
+
+
+def test_serve_cli_fault_schedule_single_engine(capsys, tmp_path, cli_plain):
+    """A stall, a link degrade beside the stall's recover (scheduled events
+    fire first), then a crash, replayed into the single engine: four
+    replans, the tokens of the run without faults."""
+    path = _schedule(tmp_path, [
+        dict(step=1, kind="device_stall", device=1, factor=0.25, duration=1),
+        dict(step=2, kind="link_degrade", link=(0, 1), factor=0.5),
+        dict(step=3, kind="device_crash", device=1),
+    ])
+    engine, reqs = t_serve.main(CLI + ["--cluster-size", "2", "--fault-schedule", path])
+    out = capsys.readouterr().out
+    assert "[serve] chaos: replaying 'cli' (3 events, horizon 3 steps)" in out
+    assert "[chaos] 4 injections" in out
+    for status in ("stalled device 1", "recovered device 1", "degraded link (0, 1)",
+                   "crashed device 1"):
+        assert status in out
+    assert engine.failed_devices == [1]
+    assert [e["kind"] for e in engine.fault_log] == [
+        "device_stall", "link_degrade", "recover", "device_crash"]
+    assert [r.out_tokens for r in reqs] == cli_plain
+
+
+def test_serve_cli_fault_schedule_with_replicas(capsys, tmp_path, cli_plain):
+    """Replica 0's only device crashes mid-decode: the router retires it,
+    retries its requests on replica 1, and every request finishes with the
+    tokens of the run without faults."""
+    path = _schedule(tmp_path, [dict(step=2, kind="device_crash", device=0)])
+    router, reqs = t_serve.main(CLI + ["--replicas", "2", "--cluster-size", "2",
+                                       "--fault-schedule", path])
+    out = capsys.readouterr().out
+    st = router.stats()
+    assert st["counters"]["crashed_replicas"] == 1 and st["counters"]["retried"] >= 1
+    assert st["finished_by_state"] == {"finished": 5}
+    assert "[chaos] 1 injections" in out and "replica0: crashed" in out
+    assert "replica_crash" in out and "retry" in out
+    assert [r.out_tokens for r in reqs] == cli_plain
+
+
+def test_serve_cli_fails_when_requests_are_stranded(capsys, tmp_path):
+    """Both replicas' devices crash: their requests are queued for a retry
+    no replica is left to take, and the CLI exits non-zero after printing
+    the operator view, where it would otherwise report them as served."""
+    path = _schedule(tmp_path, [dict(step=2, kind="device_crash", device=0),
+                                dict(step=3, kind="device_crash", device=1)])
+    with pytest.raises(SystemExit, match=r"5 of 5 requests reached no terminal state"):
+        t_serve.main(CLI + ["--replicas", "2", "--cluster-size", "2", "--fault-schedule", path])
+    out = capsys.readouterr().out
+    assert "[router] terminal states: {}" in out and "[chaos] 2 injections" in out
+
+
+def test_serve_cli_refuses_draft_with_replicas():
     with pytest.raises(SystemExit):
-        t_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag])
+        t_serve.main(CLI + ["--replicas", "2", "--draft", "llama3.2-1b"])
