@@ -153,7 +153,36 @@ Phases (any failure exits non-zero; nothing is caught):
    forwards, each held to its per-forward counts; then phase 4's traffic
    through one engine of 16 slots and a router of two 8-slot replicas, in
    turns, three runs each (the router's host cost on one card);
-11. time each kernel, its plain version and one PyTorch library call for
+11. enc-dec and VLM (model level; the engine refuses both families):
+   ``[check] flash non-causal`` holds the dense kernel at ``causal=False``
+   and seamless's heads (D 64, 16 / 16), fp32 and bf16, to its plain
+   version: encoder shapes ``[2, S_enc]`` over S_enc in {1, 37, 500,
+   1024} keys (S_enc = 1 on the decode kernel), cross-attention decode
+   rows ``[8, 1]`` over {37, 500, 1024} keys with idle rows and a cross
+   chunk ``[8, 64]`` over 500 keys with rows of 64, 17, 1 and 0 queries
+   (route by the counters, two launches bit-identical, zeros past
+   q_len); ``[check] flash GQA 28/4`` both flash kernels at qwen2-vl's
+   heads (D 128, 7 query heads a KV head), causal, dense and paged P 64,
+   at [8, 1], [8, 2] (the decode kernel) and [8, 64] (the chunk tile).
+   ``[parity-encdec]``: seamless at full width, 2 + 2 layers in fp32, 8
+   requests of 512 frames and 8-96-token prompts through an enc-dec fused
+   driver (``encdec.encode`` once, then ``fused_step`` at chunk 64, 32
+   greedy tokens): kernels and their plain versions (``plain_kernels``)
+   give identical tokens, dense and paged P 64, and ``prefill_chunked``
+   gives ``prefill``'s argmax.  ``[serve-encdec]``: 24 + 24 layers in
+   bf16, the same traffic three times (gen tok/s, peak memory), every
+   encoder pass at 24 non-causal flash calls and 49 RMSNorms and every
+   decoder forward at 48 flash calls (24 non-causal cross calls) and 73
+   RMSNorms; ``[trace-encdec]``: 16 paged decoder steps, the flash rows
+   split into cross-attention (``DenseKV``) and self-attention
+   (``PagedKV``).  ``[parity-vlm]``: qwen2-vl at full width, 2 layers in
+   fp32, 8 requests of 16 text embeds, a 16 x 16 patch grid and 32 text
+   embeds at Qwen2-VL-style (t, h, w) streams: whole-prompt prefill and 31
+   decode steps, kernels vs plain identical; then the fused driver at the
+   default streams, dense and paged, identical.  ``[serve-vlm]``: 28
+   layers in bf16, the same prompt shape three times, every forward at 28
+   flash and 57 RMSNorm launches; ``[trace-vlm]``: 16 decode steps;
+12. time each kernel, its plain version and one PyTorch library call for
    the same function (a yardstick only) with CUDA events at main-path
    shapes, beside the least time the card could take; the paged kernel
    also beside the dense kernel at the same depths and the two-call
@@ -172,7 +201,11 @@ Phases (any failure exits non-zero; nothing is caught):
    PyTorch call computes the scan); RMSNorm back to back at every shape of
    ``RMS_SHAPES``, beside ``F.rms_norm``, a copy and a read of the same
    bytes and an empty kernel's time (the floor), naming the instance; the
-   verify rows [8, 4] and [8, 5] at D 64, dense and paged.
+   verify rows [8, 4] and [8, 5] at D 64, dense and paged; the
+   non-causal calls (encoder [1, 512] over 512 keys, cross [8, 1] and
+   [8, 64] over 512 encoder keys, SDPA with ``is_causal=False`` and no
+   mask beside them) and GQA 28 / 4 at [8, 1] and [8, 64], dense and
+   paged.
 
 Each phase's wall time is printed as a ``[phase]`` line.
 
@@ -183,6 +216,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -207,6 +241,7 @@ if not (SRC / "repro_torch").is_dir():
     sys.exit(f"chip_smoke: {SRC / 'repro_torch'} not found (run from a checkout of the repo)")
 sys.path.insert(0, str(SRC))
 sys.path.insert(0, str(ROOT))
+sys.path.append(str(ROOT / "tests"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.costmodel import expected_accepted_tokens  # noqa: E402
@@ -218,10 +253,13 @@ from repro_torch.kernels import grouped_gemm as gg  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.transformer import torch_dtype  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kv_pool import KVPool  # noqa: E402
 from time_grouped_gemm import RMS_SHAPES, time_rms  # noqa: E402
+from _mrope_streams import image_streams  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / fp32 non-tensor
@@ -246,6 +284,7 @@ def reset_counts() -> None:
     fa.paged_launches = 0
     fa.decode_launches = 0
     fa.paged_decode_launches = 0
+    fa.noncausal_launches = 0
     rn.launches = 0
     rn.rows_launches = 0
     rn.generic_launches = 0
@@ -259,6 +298,7 @@ def counts() -> dict:
     return {"flash_attention": fa.launches, "flash_attention_paged": fa.paged_launches,
             "flash_attention_decode": fa.decode_launches,
             "flash_attention_paged_decode": fa.paged_decode_launches,
+            "flash_attention_noncausal": fa.noncausal_launches,
             "rmsnorm": rn.launches, "rmsnorm_rows": rn.rows_launches,
             "rmsnorm_generic": rn.generic_launches, "grouped_gemm": gg.launches,
             "ssd_scan": ssd.launches,
@@ -289,6 +329,8 @@ ZAMBA = "zamba2-2.7b"
 QWEN3 = "qwen3-14b"
 GEMMA = "gemma-7b"
 GEMMA2 = "gemma2-27b"
+SEAMLESS = "seamless-m4t-large-v2"
+VLM = "qwen2-vl-7b"
 # phase tags: [serve], [serve-moe], ...
 TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3", GEMMA: "-gemma", GEMMA2: "-gemma2"}
 # the kernels each path must launch: dense or paged KV (decode steps on the
@@ -306,8 +348,11 @@ def norms_per_forward(cfg) -> int:
     """RMSNorm launches of one forward: 2 an attention block (+ 2 for the
     per-head q/k norms, + 2 for post-norms), 2 a Mamba layer, plus the
     final norm; a hybrid model's shared attention block counts at each of
-    its occurrences."""
+    its occurrences; an enc-dec model's decoder forward has 3 a layer (self,
+    cross, MLP) and its encoder pass 2 a layer + 1 (``encode_norms``)."""
     attn = 2 + 2 * cfg.qk_norm + 2 * cfg.post_block_norm
+    if cfg.family == "encdec":
+        return 3 * cfg.n_layers + 1
     if cfg.family == "ssm":
         return 2 * cfg.n_layers + 1
     if cfg.family == "hybrid":
@@ -357,7 +402,8 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
 # attention heads (query, KV) and head dim of each served model
 HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128),
          ZAMBA: dict(h=32, kv=32, d=80), QWEN3: dict(h=40, kv=8, d=128),
-         GEMMA: dict(h=16, kv=16, d=256), GEMMA2: dict(h=32, kv=16, d=128)}
+         GEMMA: dict(h=16, kv=16, d=256), GEMMA2: dict(h=32, kv=16, d=128),
+         SEAMLESS: dict(h=16, kv=16, d=64), VLM: dict(h=28, kv=4, d=128)}
 
 
 def flash_cases(dev, dtype, arch=LLAMA):
@@ -402,7 +448,7 @@ def ragged_chunk_cases(dev, dtype, arch):
 def run_flash(fn, inp, extra):
     d = inp["q"].shape[-1]
     return fn(inp["q"], inp["k"], inp["v"], inp["q_offsets"], inp["q_lens"],
-              scale=d ** -0.5, causal=True, window=extra.get("window"),
+              scale=d ** -0.5, causal=extra.get("causal", True), window=extra.get("window"),
               softcap=extra.get("softcap"))
 
 
@@ -590,136 +636,101 @@ def build_entries(build_log: str) -> list:
     return entries
 
 
+def check_flash_call(dev, case, inp, extra, errs, key, *, on_decode=None, paged=False) -> float:
+    """One flash call held to its plain version: the route by the launch
+    counters (the decode kernel up to ``fa._decode_rows`` rows a KV head, a
+    chunk tile past it; ``on_decode`` states it where the case knows it)
+    and the causal flag by the non-causal counter; within tolerance,
+    bit-identical to a second launch, exact zeros past q_len; paged,
+    bit-equal to the dense kernel on the gathered view, and the trash
+    page's garbage changes no output.  Records and returns the max abs
+    error under ``errs[key]``."""
+    q = inp["q"]
+    kv = (inp["pool_k"] if paged else inp["k"]).shape[-2]
+    if on_decode is None:
+        on_decode = q.shape[1] * (q.shape[2] // kv) <= fa._decode_rows(q.shape[3])
+    causal = extra.get("causal", True)
+    kernel, plain = ((fa.flash_attention_paged, fa.flash_attention_paged_plain) if paged
+                     else (fa.flash_attention, fa.flash_attention_plain))
+    run = run_paged if paged else run_flash
+    names = (("flash_attention_paged", "flash_attention_paged_decode") if paged
+             else ("flash_attention", "flash_attention_decode")) + ("flash_attention_noncausal",)
+    before = counts()
+    out = run(kernel, inp, extra)
+    again = run(kernel, inp, extra)
+    after = counts()
+    ref = run(plain, inp, extra)
+    torch.cuda.synchronize(dev)
+    ran = tuple(after[n] - before[n] for n in names)
+    want = (2, 2 if on_decode else 0, 0 if causal else 2)
+    if ran != want:
+        raise AssertionError(f"{case}: launches (all, decode, non-causal) {ran}, expected {want} "
+                             f"({'decode' if on_decode else 'chunk'} route)")
+    err = within(out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{case}: two launches differ")
+    for bi, n in enumerate(inp["q_lens"].tolist()):
+        if out[bi, n:].any():
+            raise AssertionError(f"{case}: row {bi} leaked past q_len={n}")
+    if paged:
+        if not torch.equal(out, run_flash(fa.flash_attention, gathered(inp), extra)):
+            raise AssertionError(f"{case}: not bit-equal to the dense kernel on the gathered "
+                                 "view")
+        inp["pool_k"][-1] = 0
+        inp["pool_v"][-1] = 0
+        if not torch.equal(out, run(kernel, inp, extra)):
+            raise AssertionError(f"{case}: the trash page changed an output")
+    errs[key] = err
+    return err
+
+
+# the flash cases' head configurations in [check]: tag, and the prefix of
+# their error keys (llama's carry none)
+CHECK_HEADS = ((LLAMA, "d64", ""), (MOE, "d128", "d128_"), (QWEN3, "d128 GQA 40/8", "d128g5_"),
+               (ZAMBA, "d80", "d80_"), (GEMMA, "d256", "d256_"),
+               (SEAMLESS, "d64 16/16", "d64mha_"))
+
+
 def phase_check(dev) -> dict:
+    """Every flash case of ``flash_cases`` and ``paged_cases`` at each served
+    head configuration (llama's D 64 GQA 32 / 8; qwen2-moe's D 128 and
+    qwen3's GQA 40 / 8; zamba2's D 80; gemma-7b's D 256; seamless's causal
+    decoder self-attention, D 64 at 16 / 16), and a ragged chunk (Sq 100)
+    at each head dim, dense and paged (pages of 16, 64 and 48 tokens), fp32
+    and bf16, each call held by ``check_flash_call``.  Then the grouped
+    GEMM's cases."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for case, (inp, extra) in flash_cases(dev, dtype).items():
-            out = run_flash(fa.flash_attention, inp, extra)
-            ref = run_flash(fa.flash_attention_plain, inp, extra)
-            torch.cuda.synchronize(dev)
-            err = within(out, ref)
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention", case, dtype)] = err
-            log(f"[check] flash_attention {case} {str(dtype)[6:]}: max abs err {err:.3e}")
-        for case, (inp, extra) in paged_cases(dev, dtype).items():
-            out = run_paged(fa.flash_attention_paged, inp, extra)
-            ref = run_paged(fa.flash_attention_paged_plain, inp, extra)
-            dense = run_flash(fa.flash_attention, gathered(inp), extra)
-            inp["pool_k"][-1] = 0
-            inp["pool_v"][-1] = 0
-            clean = run_paged(fa.flash_attention_paged, inp, extra)
-            torch.cuda.synchronize(dev)
-            err = within(out, ref)
-            if not torch.equal(out, clean):
-                raise AssertionError(f"flash_paged {case}: the trash page changed an output")
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash_paged {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention_paged", case, dtype)] = err
-            log(f"[check] flash_attention_paged {case} {str(dtype)[6:]}: max abs err {err:.3e}; "
-                f"vs the dense kernel on the gathered view: max abs diff "
-                f"{(out.float() - dense.float()).abs().max().item():.3e}")
-        # qwen2-moe's attention: head dim 128, no GQA
-        for case, (inp, extra) in flash_cases(dev, dtype, MOE).items():
-            out = run_flash(fa.flash_attention, inp, extra)
-            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash d128 {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention", "d128_" + case, dtype)] = err
-            log(f"[check] flash_attention d128 {case} {str(dtype)[6:]}: max abs err {err:.3e}")
-        for case, (inp, extra) in paged_cases(dev, dtype, MOE).items():
-            out = run_paged(fa.flash_attention_paged, inp, extra)
-            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
-            dense = run_flash(fa.flash_attention, gathered(inp), extra)
-            errs[("flash_attention_paged", "d128_" + case, dtype)] = err
-            log(f"[check] flash_attention_paged d128 {case} {str(dtype)[6:]}: max abs err "
-                f"{err:.3e}; vs the dense kernel on the gathered view: max abs diff "
-                f"{(out.float() - dense.float()).abs().max().item():.3e}")
-        # qwen3-14b's attention: head dim 128, GQA 40 / 8 (5 query heads a KV
-        # head: decode rows on the decode kernel's 16-row instance)
-        for case, (inp, extra) in flash_cases(dev, dtype, QWEN3).items():
-            out = run_flash(fa.flash_attention, inp, extra)
-            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash d128g5 {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention", "d128g5_" + case, dtype)] = err
-            log(f"[check] flash_attention d128 GQA 40/8 {case} {str(dtype)[6:]}: max abs err "
-                f"{err:.3e}")
-        # zamba2-2.7b's shared attention: head dim 80, no GQA (decode rows on
-        # the split-KV decode kernel); every output dim held to the plain
-        # version
-        for case, (inp, extra) in flash_cases(dev, dtype, ZAMBA).items():
-            out = run_flash(fa.flash_attention, inp, extra)
-            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash d80 {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention", "d80_" + case, dtype)] = err
-            log(f"[check] flash_attention d80 {case} {str(dtype)[6:]}: max abs err {err:.3e}")
-        for case, (inp, extra) in paged_cases(dev, dtype, ZAMBA).items():
-            out = run_paged(fa.flash_attention_paged, inp, extra)
-            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
-            dense = run_flash(fa.flash_attention, gathered(inp), extra)
-            if not torch.equal(out, dense):
-                raise AssertionError(f"flash_paged d80 {case}: differs from the dense kernel "
-                                     "on the gathered view")
-            errs[("flash_attention_paged", "d80_" + case, dtype)] = err
-            log(f"[check] flash_attention_paged d80 {case} {str(dtype)[6:]}: max abs err "
-                f"{err:.3e}; equal to the dense kernel on the gathered view")
-        # gemma-7b's attention: head dim 256, no GQA (decode rows on the
-        # decode kernel's 1-row instance); every case launched twice gives
-        # the same bits; paged at P 16, 64 and 48, plain and with window 64
-        # + softcap 50, bit-equal to the dense kernel on the gathered view
-        for case, (inp, extra) in flash_cases(dev, dtype, GEMMA).items():
-            out = run_flash(fa.flash_attention, inp, extra)
-            again = run_flash(fa.flash_attention, inp, extra)
-            err = within(out, run_flash(fa.flash_attention_plain, inp, extra))
-            if not torch.equal(out, again):
-                raise AssertionError(f"flash d256 {case}: two launches differ")
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash d256 {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention", "d256_" + case, dtype)] = err
-            log(f"[check] flash_attention d256 {case} {str(dtype)[6:]}: max abs err {err:.3e}, two "
-                "launches bit-identical")
-        for case, (inp, extra) in paged_cases(dev, dtype, GEMMA).items():
-            out = run_paged(fa.flash_attention_paged, inp, extra)
-            again = run_paged(fa.flash_attention_paged, inp, extra)
-            err = within(out, run_paged(fa.flash_attention_paged_plain, inp, extra))
-            dense = run_flash(fa.flash_attention, gathered(inp), extra)
-            if not (torch.equal(out, dense) and torch.equal(out, again)):
-                raise AssertionError(f"flash_paged d256 {case}: not bit-equal to the dense kernel "
-                                     "on the gathered view, or to itself")
-            for bi, n in enumerate(inp["q_lens"].tolist()):
-                if out[bi, n:].any():
-                    raise AssertionError(f"flash_paged d256 {case}: row {bi} leaked past q_len={n}")
-            errs[("flash_attention_paged", "d256_" + case, dtype)] = err
-            log(f"[check] flash_attention_paged d256 {case} {str(dtype)[6:]}: max abs err "
-                f"{err:.3e}; equal to the dense kernel on the gathered view, two launches "
-                "bit-identical")
-        for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128"), (GEMMA, "d256")):
+        dt = str(dtype)[6:]
+        for arch, tag, prefix in CHECK_HEADS:
+            for case, (inp, extra) in flash_cases(dev, dtype, arch).items():
+                err = check_flash_call(dev, f"flash {tag} {case}", inp, extra, errs,
+                                       ("flash_attention", prefix + case, dtype))
+                log(f"[check] flash_attention {tag} {case} {dt}: max abs err {err:.3e}, two "
+                    "launches bit-identical")
+            for case, (inp, extra) in paged_cases(dev, dtype, arch).items():
+                err = check_flash_call(dev, f"flash_paged {tag} {case}", inp, extra, errs,
+                                       ("flash_attention_paged", prefix + case, dtype),
+                                       paged=True)
+                log(f"[check] flash_attention_paged {tag} {case} {dt}: max abs err {err:.3e}; "
+                    "equal to the dense kernel on the gathered view, two launches "
+                    "bit-identical, the trash page changes nothing")
+        for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128"), (GEMMA, "d256"),
+                          (SEAMLESS, "d64mha")):
             dense_inp, paged_inp = ragged_chunk_cases(dev, dtype, arch)
-            out = run_flash(fa.flash_attention, dense_inp, {})
-            err = within(out, run_flash(fa.flash_attention_plain, dense_inp, {}))
-            paged = run_paged(fa.flash_attention_paged, paged_inp, {})
-            p_err = within(paged, run_paged(fa.flash_attention_paged_plain, paged_inp, {}))
-            if not torch.equal(paged, run_flash(fa.flash_attention, gathered(paged_inp), {})):
-                raise AssertionError(f"flash_paged {tag} sq100: differs from the dense kernel "
-                                     "on the gathered view")
-            errs[("flash_attention", f"{tag}_sq100", dtype)] = err
-            errs[("flash_attention_paged", f"{tag}_sq100_P64", dtype)] = p_err
-            log(f"[check] flash_attention {tag} sq100 depths 0/1000 {str(dtype)[6:]}: max abs err "
+            err = check_flash_call(dev, f"flash {tag} sq100", dense_inp, {}, errs,
+                                   ("flash_attention", f"{tag}_sq100", dtype))
+            p_err = check_flash_call(dev, f"flash_paged {tag} sq100", paged_inp, {}, errs,
+                                     ("flash_attention_paged", f"{tag}_sq100_P64", dtype),
+                                     paged=True)
+            log(f"[check] flash_attention {tag} sq100 depths 0/1000 {dt}: max abs err "
                 f"{err:.3e}; paged P64 {p_err:.3e}, equal to the dense kernel on the gathered view")
         for case, inp in gg_cases(dev, dtype).items():
             out = run_gg(gg.grouped_gemm, inp)
             err = within(out, run_gg(gg.grouped_gemm_plain, inp))
             gs = inp["group_sizes"]
             errs[("grouped_gemm", case, dtype)] = err
-            log(f"[check] grouped_gemm {case} {str(dtype)[6:]} x {tuple(inp['x'].shape)} w "
+            log(f"[check] grouped_gemm {case} {dt} x {tuple(inp['x'].shape)} w "
                 f"{tuple(inp['w'].shape)}: {int((gs > 0).sum())} experts with rows, largest "
                 f"group {int(gs.max())}: max abs err {err:.3e}")
             del out
@@ -923,51 +934,17 @@ def phase_check_verify(dev) -> dict:
                     lens = [sq] * 4 + [1, 0]
                     case = f"{tag}_verify_sq{sq}" + ("_window_softcap" if extra else "")
                     inp = flash_inputs(dev, dtype, sq=sq, depths=depths, q_lens=lens, **hk)
-                    before = (fa.launches, fa.decode_launches)
-                    out = run_flash(fa.flash_attention, inp, extra)
-                    again = run_flash(fa.flash_attention, inp, extra)
-                    ref = run_flash(fa.flash_attention_plain, inp, extra)
-                    torch.cuda.synchronize(dev)
-                    ran = (fa.launches - before[0], fa.decode_launches - before[1])
-                    if ran != (2, 2 if on_decode else 0):
-                        raise AssertionError(f"flash {case}: launches (all, decode) {ran}, the "
-                                             f"rule gives the {'decode' if on_decode else 'chunk'}"
-                                             " route")
-                    err = within(out, ref)
-                    if not torch.equal(out, again):
-                        raise AssertionError(f"flash {case}: two launches differ")
-                    for bi, n in enumerate(lens):
-                        if out[bi, n:].any():
-                            raise AssertionError(f"flash {case}: row {bi} leaked past q_len={n}")
-                    errs[("flash_attention", case, dtype)] = err
+                    err = check_flash_call(dev, f"flash {case}", inp, extra, errs,
+                                           ("flash_attention", case, dtype),
+                                           on_decode=on_decode)
                     worst = max(worst, err)
                     for P in (16, 64):
                         pin = paged_inputs(dev, dtype, P=P, depths=depths, q_lens=lens, sq=sq,
                                            **hk)
-                        before = (fa.paged_launches, fa.paged_decode_launches)
-                        out = run_paged(fa.flash_attention_paged, pin, extra)
-                        again = run_paged(fa.flash_attention_paged, pin, extra)
-                        ran = (fa.paged_launches - before[0], fa.paged_decode_launches - before[1])
-                        ref = run_paged(fa.flash_attention_paged_plain, pin, extra)
-                        dense = run_flash(fa.flash_attention, gathered(pin), extra)
-                        pin["pool_k"][-1] = 0
-                        pin["pool_v"][-1] = 0
-                        clean = run_paged(fa.flash_attention_paged, pin, extra)
-                        torch.cuda.synchronize(dev)
-                        if ran != (2, 2 if on_decode else 0):
-                            raise AssertionError(f"flash_paged {case} P{P}: launches (all, "
-                                                 f"decode) {ran}")
-                        p_err = within(out, ref)
-                        if not (torch.equal(out, dense) and torch.equal(out, clean)
-                                and torch.equal(out, again)):
-                            raise AssertionError(f"flash_paged {case} P{P}: not bit-equal to the "
-                                                 "dense kernel, to the clean trash page, or to "
-                                                 "itself")
-                        for bi, n in enumerate(lens):
-                            if out[bi, n:].any():
-                                raise AssertionError(f"flash_paged {case} P{P}: row {bi} leaked "
-                                                     f"past q_len={n}")
-                        errs[("flash_attention_paged", f"{case}_P{P}", dtype)] = p_err
+                        p_err = check_flash_call(dev, f"flash_paged {case} P{P}", pin, extra,
+                                                 errs, ("flash_attention_paged",
+                                                        f"{case}_P{P}", dtype),
+                                                 on_decode=on_decode, paged=True)
                         worst = max(worst, p_err)
                     n_calls += 13
                     routes.append(f"{sq}:{'decode' if on_decode else 'chunk'}")
@@ -978,6 +955,105 @@ def phase_check_verify(dev) -> dict:
                     "the counters, two launches bit-identical, zeros past q_len, paged bit-equal "
                     "to dense (garbage and zeroed trash page)")
     log(f"[check] flash verify rows: {n_calls} calls at {len(VERIFY_HEADS)} head configurations")
+    return errs
+
+
+# the non-causal calls of an enc-dec model at seamless's heads (D 64, 16 /
+# 16): the encoder's self-attention over S_enc frames, each a key (S_enc = 1
+# on the decode kernel), and the decoder's cross-attention over S_enc keys,
+# decode rows and a fused chunk, with idle and partial rows
+NONCAUSAL_ENC = (1, 37, 500, 1024)
+NONCAUSAL_CROSS_DECODE = (37, 500, 1024)
+
+
+def noncausal_cases(dev, dtype) -> dict:
+    """name → (inputs, on the decode kernel); every call ``causal=False``.
+    The query offsets are decoder depths: a non-causal call must ignore
+    them."""
+    hk = HEADS[SEAMLESS]
+    rng = np.random.default_rng(SEED + 11)
+    cases = {}
+    for s_enc in NONCAUSAL_ENC:
+        cases[f"encoder_S{s_enc}"] = (flash_inputs(dev, dtype, sq=s_enc, depths=[0, 0],
+                                                   q_lens=[s_enc] * 2, sk=s_enc, **hk), s_enc == 1)
+    for s_enc in NONCAUSAL_CROSS_DECODE:
+        cases[f"cross_decode_S{s_enc}"] = (flash_inputs(
+            dev, dtype, sq=1, depths=rng.integers(0, 128, size=8).tolist(),
+            q_lens=[1, 0, 1, 1, 0, 1, 1, 1], sk=s_enc, **hk), True)
+    cases["cross_chunk_S500"] = (flash_inputs(
+        dev, dtype, sq=64, depths=rng.integers(0, 64, size=8).tolist(),
+        q_lens=[64, 17, 1, 0, 64, 33, 0, 64], sk=500, **hk), False)
+    return cases
+
+
+def phase_check_noncausal(dev) -> dict:
+    """``[check] flash non-causal``: the dense kernel at ``causal=False``
+    (seamless's D 64, 16 / 16), fp32 and bf16, against its plain version
+    with the stated tolerances: encoder shapes ``[2, S_enc, 16, 64]`` over
+    S_enc in {1, 37, 500, 1024} keys, cross-attention decode rows ``[8, 1]``
+    over {37, 500, 1024} keys with idle rows, and a cross chunk ``[8, 64]``
+    over 500 keys with rows of 64, 17, 1 and 0 queries; the key axis is the
+    frame count (its tail masked by ``kp < k_len`` alone), the route by the
+    counters, two launches bit-identical, zeros past q_len, every call
+    counted as non-causal."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, (inp, on_decode) in noncausal_cases(dev, dtype).items():
+            err = check_flash_call(dev, f"flash non-causal {case}", inp, {"causal": False},
+                                   errs, ("flash_attention", f"noncausal_{case}", dtype),
+                                   on_decode=on_decode)
+            log(f"[check] flash non-causal {case} {str(dtype)[6:]} q {tuple(inp['q'].shape)} "
+                f"over {inp['k'].shape[1]} keys, q_lens {inp['q_lens'].tolist()}: "
+                f"{'decode' if on_decode else 'chunk'} route, max abs err {err:.3e}, two launches "
+                "bit-identical, zeros past q_len")
+    return errs
+
+
+def gqa7_cases(dev, dtype, paged) -> dict:
+    """qwen2-vl's heads (D 128, 28 / 4: 7 query heads a KV head), causal, at
+    ragged depths: decode rows [8, 1] (7 rows a KV head), two-query rows
+    [8, 2] (14), a fused chunk [8, 64] (448: the chunk tile's 64-row blocks,
+    all full), a ragged chunk [8, 100] (700 rows: the last block partial)
+    and the whole-prompt prefill [8, 304] of ``VLM_PROMPT`` (2128 rows: the
+    last block partial), its rows 0 and 1 at depth 0 with all 304 queries
+    as [serve-vlm] sends them; each name → (inputs, on the decode kernel)."""
+    hk = HEADS[VLM]
+    rng = np.random.default_rng(SEED + 12)
+    prompt = VLM_PROMPT[0] + VLM_PROMPT[1] * VLM_PROMPT[2] + VLM_PROMPT[3]
+    cases = {}
+    for sq, lens in ((1, [1, 1, 0, 1, 1, 1, 0, 1]), (2, [2, 1, 0, 2, 2, 2, 1, 2]),
+                     (64, [64, 1, 0, 64, 17, 1, 64, 0]), (100, [100, 1, 0, 100, 17, 100, 64, 0]),
+                     (prompt, [prompt, prompt, 0, 100, prompt, 1, 17, prompt])):
+        depths = [int(rng.integers(0, 2048 - sq + 1)) for _ in lens]
+        if sq == prompt:
+            depths[:2] = [0, 0]
+        kw = dict(sq=sq, depths=depths, q_lens=lens, **hk)
+        inp = paged_inputs(dev, dtype, P=64, **kw) if paged else flash_inputs(dev, dtype, **kw)
+        cases[f"sq{sq}"] = (inp, sq * hk["h"] // hk["kv"] <= fa._decode_rows(hk["d"]))
+    return cases
+
+
+def phase_check_gqa7(dev) -> dict:
+    """``[check] flash GQA 28/4``: both flash kernels at qwen2-vl's heads,
+    causal, dense and paged (P 64), fp32 and bf16, each call held to its
+    plain version with its route logged and asserted, two launches
+    bit-identical, zeros past q_len, paged bit-equal to the dense kernel
+    on the gathered view."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for paged in (False, True):
+            for case, (inp, on_decode) in gqa7_cases(dev, dtype, paged).items():
+                name = "flash_attention_paged" if paged else "flash_attention"
+                err = check_flash_call(dev, f"flash GQA 28/4 {case}", inp, {}, errs,
+                                       (name, f"d128g7_{case}", dtype), on_decode=on_decode,
+                                       paged=paged)
+                rows = inp["q"].shape[1] * HEADS[VLM]["h"] // HEADS[VLM]["kv"]
+                log(f"[check] flash GQA 28/4 {'paged P64' if paged else 'dense'} {case} "
+                    f"{str(dtype)[6:]}: {rows} rows a KV head on the "
+                    f"{'decode kernel' if on_decode else 'chunk tile'}, depths "
+                    f"{inp['q_offsets'].tolist()}, q_lens {inp['q_lens'].tolist()}: max abs err "
+                    f"{err:.3e}, two launches bit-identical"
+                    + (", bit-equal to the dense kernel on the gathered view" if paged else ""))
     return errs
 
 
@@ -2521,13 +2597,28 @@ class FusedDriver:
     step over every row — prefill rows stream their next ``chunk`` tokens,
     decode rows feed their last token, finished rows idle at ``q_len = 0``
     — with S = 1 once every row decodes.  Each step's kernel launches are
-    kept beside its S."""
+    kept beside its S.  ``page_tokens``: the KV cache in page pools, one
+    ``KVPool`` table for all rows; ``cross``: an enc-dec model's cross K/V
+    (one encoder pass); ``embeds``: feed ``params["embed"][token]`` as
+    ``embeds`` (a stub-frontend model, at the default M-RoPE streams)."""
 
-    def __init__(self, model, params, prompts, max_new, dev, *, chunk=64, max_len=2048):
+    def __init__(self, model, params, prompts, max_new, dev, *, chunk=64, max_len=2048,
+                 page_tokens=None, cross=None, embeds=False):
         self.model, self.params, self.prompts = model, params, prompts
         self.max_new, self.chunk, self.dev = max_new, chunk, dev
         b = len(prompts)
-        self.caches = model.init_cache(b, max_len, dev)
+        self.table = None
+        if page_tokens is None:
+            self.caches = model.init_cache(b, max_len, dev)
+        else:
+            pool = KVPool(b, max_len, page_tokens, prefix_sharing=False)
+            for i, p in enumerate(prompts):
+                pool.alloc_sequence(i, list(p), min(len(p) + max_new, max_len))
+            self.caches = model.init_paged_cache(pool.num_pages, page_tokens, b, dev)
+            self.table = torch.from_numpy(pool.table_array()).to(dev)
+        if cross is not None:
+            self.caches["cross"] = cross
+        self.embeds = embeds
         self.done = [0] * b
         self.out = [[] for _ in range(b)]
         self.finished = [False] * b
@@ -2550,10 +2641,12 @@ class FusedDriver:
                 toks[i, 0] = self.out[i][-1]
                 q_lens[i] = 1
                 cache_pos[i] = len(self.prompts[i]) + len(self.out[i]) - 1
+        tok = torch.from_numpy(toks).to(self.dev)
+        batch = {"embeds": self.params["embed"][tok.long()]} if self.embeds else {"tokens": tok}
+        kw = {} if self.table is None else {"page_table": self.table}
         before = counts()
-        logits, self.caches = self.model.fused_step(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.dev)}, self.caches,
-            cache_pos, q_lens)
+        logits, self.caches = self.model.fused_step(self.params, batch, self.caches, cache_pos,
+                                                    q_lens, **kw)
         nxt = logits.argmax(-1).cpu().numpy()
         after = counts()
         self.steps.append((s, {k: after[k] - before[k] for k in after}))
@@ -2580,7 +2673,9 @@ def check_forwards(steps, cfg, what, *, kernels=True, paged=False) -> None:
     exactly when ``S · H / KV <= fa._decode_rows(D)`` (the wrapper's rule);
     the SSD kernel once per Mamba layer when S > 1 and never at S = 1 (the
     tensor-core kernel in bf16, the CUDA-core one in fp32); the grouped
-    GEMM 3 times an MoE layer; nothing else.  Without kernels, nothing."""
+    GEMM 3 times an MoE layer; an enc-dec decoder's cross-attention once a
+    layer more, non-causal, on the dense kernel whatever the self cache;
+    nothing else.  Without kernels, nothing."""
     mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     attn = (cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
             else 0 if cfg.family == "ssm" else cfg.n_layers)
@@ -2590,11 +2685,16 @@ def check_forwards(steps, cfg, what, *, kernels=True, paged=False) -> None:
     mma = cfg.dtype == "bfloat16"
     for s, d in steps:
         scans = mamba if s > 1 else 0
+        dec = attn if s * rep <= fa._decode_rows(cfg.resolved_head_dim) else 0
         want = {"rmsnorm": norms, "rmsnorm_rows": norms,
                 "rmsnorm_generic": 0, "ssd_scan": scans, "ssd_scan_mma": scans if mma else 0,
-                "ssd_scan_core": 0 if mma else scans, name: attn,
-                name + "_decode": attn if s * rep <= fa._decode_rows(cfg.resolved_head_dim) else 0,
-                "grouped_gemm": 3 * cfg.n_layers if cfg.n_experts else 0}
+                "ssd_scan_core": 0 if mma else scans, name: attn, name + "_decode": dec,
+                "grouped_gemm": 3 * cfg.n_layers if cfg.n_experts else 0,
+                "flash_attention_noncausal": 0}
+        if cfg.family == "encdec":
+            want["flash_attention"] = want.get("flash_attention", 0) + attn
+            want["flash_attention_decode"] = want.get("flash_attention_decode", 0) + dec
+            want["flash_attention_noncausal"] = attn
         if not kernels:
             want = {k: 0 for k in want}
         other = {k: v for k, v in d.items() if k not in want and v}
@@ -2876,6 +2976,378 @@ def phase_trace_ssm(dev) -> None:
     free_card()
 
 
+# ----------------------------------------------------------- enc-dec and VLM
+@contextlib.contextmanager
+def plain_kernels():
+    """The parity runs' yardstick: within the block, every kernel wrapper an
+    attention model calls runs its plain version on the card's tensors, with
+    the same masking rule (the slot-based causal test of the flash kernels,
+    which the ``naive`` impl does not share once M-RoPE's temporal stream
+    is not the slot index), and launches nothing."""
+    saved = (fa.flash_attention, fa.flash_attention_paged, rn.rmsnorm)
+
+    def lens(q, q_lens):
+        return torch.full((q.shape[0],), q.shape[1], dtype=torch.int32, device=q.device) \
+            if q_lens is None else q_lens
+
+    fa.flash_attention = lambda q, k, v, offs, q_lens=None, **kw: fa.flash_attention_plain(
+        q, k, v, offs, lens(q, q_lens), **kw)
+    fa.flash_attention_paged = lambda q, pk, pv, t, offs, q_lens=None, **kw: (
+        fa.flash_attention_paged_plain(q, pk, pv, t, offs, lens(q, q_lens), **kw))
+    rn.rmsnorm = rn.rmsnorm_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention, fa.flash_attention_paged, rn.rmsnorm = saved
+
+
+ENC_FRAMES = 512          # frames an enc-dec request carries
+ENCDEC_MAX_LEN = 256      # the decoder's self cache: prompts of 8-96 tokens + 32 new
+
+
+def encode_norms(cfg) -> int:
+    """RMSNorm launches of an enc-dec model's encoder pass: 2 a layer and
+    the final norm."""
+    return 2 * cfg.n_encoder_layers + 1
+
+
+def encdec_traffic(cfg, dev, *, n=8, seed=SEED):
+    """``n`` requests: ``ENC_FRAMES`` frames of N(0, 1) each and a decoder
+    prompt of 8-96 tokens (numpy seed ``seed``)."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(
+        rng.standard_normal((n, ENC_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(m)).tolist()
+               for m in rng.integers(8, 97, size=n)]
+    return frames, prompts
+
+
+def encode_checked(params, frames, cfg, what, *, kernels=True):
+    """One encoder pass and its decoder layers' cross K/V; the pass must
+    launch ``encode_norms(cfg)`` RMSNorms on the rows kernel and one
+    non-causal flash call a layer (none without kernels)."""
+    before = counts()
+    memory = encdec.encode(params, frames, cfg)
+    after = counts()
+    got = {k: after[k] - before[k] for k in after}
+    n, layers = encode_norms(cfg), cfg.n_encoder_layers
+    want = dict(rmsnorm=n, rmsnorm_rows=n, flash_attention=layers,
+                flash_attention_noncausal=layers)
+    if not kernels:
+        want = {k: 0 for k in want}
+    if any(got[k] != v for k, v in want.items()) or any(
+            v for k, v in got.items() if k not in want):
+        raise AssertionError(f"{what}: the encoder pass launched {got}, not {want}")
+    return encdec.cross_kv_cache(params, memory, cfg), got
+
+
+def phase_parity_encdec(dev) -> dict:
+    """``[parity-encdec]``: seamless at full width (d_model 1024, vocab
+    256206, D 64), 2 encoder + 2 decoder layers in fp32: 8 requests of 512
+    frames and 8-96-token prompts, 32 greedy tokens through the enc-dec
+    fused driver (encode once, then ``fused_step`` at chunk 64): the kernels
+    and their plain versions give identical tokens, with a dense and with a
+    paged (P 64) self cache; every forward held to its launches.  Then
+    ``prefill_chunked`` (chunk 64) against ``prefill`` on a [8, 96] prompt
+    batch: the same argmax, logits within 1e-3 of the logit scale."""
+    tag = "[parity-encdec]"
+    cfg = full_cfg(SEAMLESS, n_layers=2, n_encoder_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    frames, prompts = encdec_traffic(cfg, dev, seed=SEED + 1)
+    tokens, launches = {}, {}
+    for name, paged, plain in (("kernels", False, False), ("plain", False, True),
+                               ("kernels paged P64", True, False)):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            reset_counts()
+            cross, enc = encode_checked(params, frames, cfg, f"{tag} {name}", kernels=not plain)
+            drv = FusedDriver(model, params, prompts, 32, dev, max_len=ENCDEC_MAX_LEN,
+                              page_tokens=64 if paged else None, cross=cross)
+            tokens[name] = drv.run()
+        check_forwards(drv.steps, cfg, f"{tag} {name}", kernels=not plain, paged=paged)
+        launches[name] = counts()
+        log(f"{tag} fp32 {cfg.n_encoder_layers}+{cfg.n_layers} layers {name}: encoder pass "
+            f"{enc}; {len(drv.steps)} decoder forwards; launches {launches[name]}")
+        del drv, cross
+    for name, toks in tokens.items():
+        if toks != tokens["plain"]:
+            raise AssertionError(f"{tag} fp32 greedy tokens differ between {name} and plain")
+    log(f"{tag} fp32: greedy tokens identical over 8 requests x 32 steps ("
+        + ", ".join(tokens) + f"); prompts {[len(p) for p in prompts]} tokens, "
+        f"{ENC_FRAMES} frames each")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        1, cfg.vocab_size, size=(8, 96)).astype(np.int32)).to(dev)
+    whole, _ = model.prefill(params, {"frames": frames, "tokens": toks}, 128)
+    chunked, _ = model.prefill_chunked(params, {"frames": frames, "tokens": toks}, 128, chunk=64)
+    torch.cuda.synchronize(dev)
+    diff = (whole - chunked).abs().max().item()
+    scale = whole.abs().max().item()
+    if not (torch.equal(whole.argmax(-1), chunked.argmax(-1)) and diff <= 1e-3 * scale):
+        raise AssertionError(f"{tag} prefill_chunked differs from prefill: {diff} at {scale}")
+    log(f"{tag} fp32 prefill_chunked(64) vs prefill, [8, 96] tokens: last-token logits max abs "
+        f"diff {diff:.3e} (logit scale {scale:.3f}), argmax equal in every row")
+    del params
+    free_card()
+    return {"paged": launches["kernels paged P64"], "dense": launches["kernels"]}
+
+
+def phase_serve_encdec(dev) -> dict:
+    """``[serve-encdec]``: seamless at full width and depth (24 + 24 layers,
+    bf16, random weights from a seed), the same traffic served three times:
+    one encoder pass over the 8 x 512 frames, then the fused driver at
+    chunk 64 to 32 new tokens each; generated tok/s (the encoder pass
+    included) and the card's peak memory; every encoder pass and decoder
+    forward held to its launches.  Then ``[trace-encdec]``."""
+    tag = "[serve-encdec]"
+    cfg = full_cfg(SEAMLESS)
+    model = build_model(cfg)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"{tag} {SEAMLESS}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters; card memory allocated after init "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB; host: {host_line()}")
+    frames, prompts = encdec_traffic(cfg, dev)
+    tok_s, first, first_counts, per_fwd = [], None, None, None
+    for rep in range(ENGINE_REPEATS):
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cross, enc = encode_checked(params, frames, cfg, tag)
+        torch.cuda.synchronize(dev)
+        t_enc = time.perf_counter() - t0
+        drv = FusedDriver(model, params, prompts, 32, dev, max_len=ENCDEC_MAX_LEN, cross=cross)
+        out = drv.run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = counts()
+        check_forwards(drv.steps, cfg, f"{tag} run {rep + 1}")
+        for o in out:
+            if not (len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)):
+                raise AssertionError(f"{tag} a request was not served right: {o}")
+        toks = sum(len(o) for o in out)
+        tok_s.append(toks / wall)
+        same = "" if first is None else f", tokens as run 1: {out == first}"
+        first = first or out
+        first_counts = first_counts or got
+        per_fwd = per_fwd or drv.steps[0][1]
+        n_big = sum(1 for s, _ in drv.steps if s > 1)
+        log(f"{tag} run {rep + 1}/{ENGINE_REPEATS}: 8 requests, {8 * ENC_FRAMES} frames, "
+            f"{sum(map(len, prompts))} prompt tokens, {toks} generated in {wall:.3f}s (encoder "
+            f"pass {t_enc:.3f}s) = {toks / wall:.1f} generated tok/s; {len(drv.steps)} decoder "
+            f"forwards ({n_big} at S=64); encoder launches {enc}; launches {got}{same}")
+        del drv, cross
+    log(f"{tag} gen tok/s over {ENGINE_REPEATS} runs: {[round(x, 1) for x in tok_s]}; peak card "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    phase_trace_encdec(model, params, cfg, dev)
+    del params
+    free_card()
+    return {"cli": first_counts, "per_forward": per_fwd, "encode": enc, "tok_s": tok_s}
+
+
+def flash_rows_by_addr(prof) -> dict:
+    """Device time (ms) and calls of the flash kernels, by how they address
+    K/V: ``DenseKV`` or ``PagedKV`` (the merge kernel, which reads only the
+    workspace, apart)."""
+    out = {}
+    for e in prof.key_averages():
+        if not (str(getattr(e, "device_type", "")).endswith("CUDA") and "flash_fwd" in e.key):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        kind = ("DenseKV" if "DenseKV" in e.key else "PagedKV" if "PagedKV" in e.key
+                else "merge")
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + dt / 1e3, n + e.count)
+    return out
+
+
+def phase_trace_encdec(model, params, cfg, dev) -> None:
+    """``[trace-encdec]``: a profiler trace of 16 decoder steps of the fused
+    driver, after one untraced step, with the self cache paged (P 64) so
+    the flash rows split by kernel instance: the ``DenseKV`` rows are the
+    cross-attention over the 512 encoder keys, the ``PagedKV`` rows the
+    causal self-attention."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames, prompts = encdec_traffic(cfg, dev, seed=SEED + 2)
+    cross, _ = encode_checked(params, frames, cfg, "[trace-encdec]")
+    drv = FusedDriver(model, params, prompts, 64, dev, max_len=ENCDEC_MAX_LEN, page_tokens=64,
+                      cross=cross)
+    drv.step()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(16):
+            drv.step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    check_forwards(drv.steps, cfg, "[trace-encdec]", paged=True)
+    n_big = sum(1 for s, _ in drv.steps[1:] if s > 1)
+    report_trace(prof, wall, "[trace-encdec]", f"16 decoder steps ({n_big} at S=64), self cache "
+                 "paged P64")
+    rows = flash_rows_by_addr(prof)
+    log("[trace-encdec]   flash by instance: " + "; ".join(
+        f"{'cross-attention (DenseKV)' if k == 'DenseKV' else 'self-attention (PagedKV)' if k == 'PagedKV' else 'decode merge'} "
+        f"{ms:.3f} ms x{n}" for k, (ms, n) in sorted(rows.items())))
+    del drv, cross
+
+
+VLM_PROMPT = (16, 16, 16, 32)   # 16 text embeds, a 16 x 16 patch grid, 32 text embeds
+VLM_MAX_LEN = 512
+
+
+def vlm_batch(cfg, dev, *, n=8, seed=SEED) -> dict:
+    """``n`` requests of the ``VLM_PROMPT`` shape: seeded N(0, 0.02) embeds
+    (the scale of the token embeddings) and its image streams."""
+    pos = image_streams(*VLM_PROMPT)
+    s = pos.shape[1]
+    emb = np.random.default_rng(seed).standard_normal((n, s, cfg.d_model)).astype(np.float32)
+    return {"embeds": torch.from_numpy(emb * 0.02).to(device=dev, dtype=torch_dtype(cfg)),
+            "positions": torch.from_numpy(np.ascontiguousarray(
+                np.broadcast_to(pos[:, None], (3, n, s))).astype(np.int32)).to(dev)}
+
+
+def vlm_generate(model, params, batch, max_new, dev, cfg, what, *, kernels=True):
+    """Whole-prompt ``prefill`` of ``batch`` (its own streams), then greedy
+    ``decode_step``s feeding ``params["embed"][token]`` as ``embeds``, to
+    ``max_new`` tokens a row; every forward held to its launches.  Returns
+    the tokens [n, max_new] and the forwards' (S, launches)."""
+    steps = []
+
+    def forward(fn, s):
+        before = counts()
+        out = fn()
+        after = counts()
+        steps.append((s, {k: after[k] - before[k] for k in after}))
+        return out
+
+    s = batch["embeds"].shape[1]
+    logits, caches = forward(lambda: model.prefill(params, batch, VLM_MAX_LEN), s)
+    toks = [logits.argmax(-1)]
+    for i in range(max_new - 1):
+        e = params["embed"][toks[-1]][:, None]
+        logits, caches = forward(lambda: model.decode_step(
+            params, {"embeds": e}, caches, torch.tensor(s + i)), 1)
+        toks.append(logits.argmax(-1))
+    check_forwards(steps, cfg, what, kernels=kernels)
+    return torch.stack(toks, 1).cpu().tolist(), steps
+
+
+def phase_parity_vlm(dev) -> dict:
+    """``[parity-vlm]``: qwen2-vl at full width (d_model 3584, D 128, 28 /
+    4), 2 layers in fp32.  8 requests of 16 text embeds, a 16 x 16 patch
+    grid and 32 text embeds at Qwen2-VL-style streams (distinct t, h, w on
+    the image, so a wrong section split would show): whole-prompt
+    ``prefill``, then 31 ``decode_step``s (32 tokens) — the kernels and
+    their plain versions give identical tokens.  Then the fused driver at
+    the default streams (8 prompts of 100-600 token embeddings, chunk 64,
+    32 new): kernels, plain, and kernels with paged KV (P 64), identical
+    tokens."""
+    tag = "[parity-vlm]"
+    cfg = full_cfg(VLM, n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    batch = vlm_batch(cfg, dev, seed=SEED + 1)
+    tokens = {}
+    for name, plain in (("kernels", False), ("plain", True)):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            reset_counts()
+            tokens[name], steps = vlm_generate(model, params, batch, 32, dev, cfg,
+                                               f"{tag} {name}", kernels=not plain)
+        log(f"{tag} fp32 2 layers {name}: prefill [8, {batch['embeds'].shape[1]}] at image "
+            f"streams + {len(steps) - 1} decode steps; launches {counts()}")
+    if tokens["kernels"] != tokens["plain"]:
+        raise AssertionError(f"{tag} fp32 greedy tokens differ between kernels and plain")
+    log(f"{tag} fp32: greedy tokens identical, kernels vs plain, over 8 requests x 32 steps "
+        f"(streams t/h/w of the image: t {VLM_PROMPT[0]}, h and w "
+        f"{VLM_PROMPT[0]}..{VLM_PROMPT[0] + VLM_PROMPT[1] - 1})")
+    prompts = ssm_prompts(cfg, seed=SEED + 1)
+    fused, launches = {}, {}
+    for name, paged, plain in (("kernels", False, False), ("plain", False, True),
+                               ("kernels paged P64", True, False)):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            reset_counts()
+            drv = FusedDriver(model, params, prompts, 32, dev, page_tokens=64 if paged else None,
+                              embeds=True)
+            fused[name] = drv.run()
+        check_forwards(drv.steps, cfg, f"{tag} fused {name}", kernels=not plain, paged=paged)
+        launches[name] = counts()
+        log(f"{tag} fp32 2 layers fused driver {name}: {len(drv.steps)} forwards, launches "
+            f"{launches[name]}")
+        del drv
+    for name, toks in fused.items():
+        if toks != fused["plain"]:
+            raise AssertionError(f"{tag} fused driver tokens differ between {name} and plain")
+    log(f"{tag} fp32 fused driver at the default streams: greedy tokens identical over 8 "
+        "requests x 32 steps (" + ", ".join(fused) + ")")
+    del params
+    free_card()
+    return {"paged": launches["kernels paged P64"], "dense": launches["kernels"]}
+
+
+def phase_serve_vlm(dev) -> dict:
+    """``[serve-vlm]``: qwen2-vl at full width and depth (28 layers, bf16,
+    random weights from a seed): 8 requests of the ``VLM_PROMPT`` shape at
+    its image streams, whole-prompt prefill and 31 decode steps (32 new
+    tokens each), three runs: generated tok/s and peak card memory; every
+    forward held to 28 flash and 57 RMSNorm launches.  Then
+    ``[trace-vlm]``: a profiler trace of 16 decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "[serve-vlm]"
+    cfg = full_cfg(VLM)
+    model = build_model(cfg)
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"{tag} {VLM}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters; card memory allocated after init "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB; host: {host_line()}")
+    batch = vlm_batch(cfg, dev)
+    s = batch["embeds"].shape[1]
+    tok_s, first, first_counts, per_fwd = [], None, None, None
+    for rep in range(ENGINE_REPEATS):
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out, steps = vlm_generate(model, params, batch, 32, dev, cfg, f"{tag} run {rep + 1}")
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = counts()
+        if not all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o) for o in out):
+            raise AssertionError(f"{tag} a request was not served right")
+        tok_s.append(8 * 32 / wall)
+        same = "" if first is None else f", tokens as run 1: {out == first}"
+        first = first or out
+        first_counts = first_counts or got
+        per_fwd = per_fwd or steps[0][1]
+        log(f"{tag} run {rep + 1}/{ENGINE_REPEATS}: 8 requests of {s} embeds, 256 generated in "
+            f"{wall:.3f}s = {256 / wall:.1f} generated tok/s; {len(steps)} forwards; launches "
+            f"{got}{same}")
+    log(f"{tag} gen tok/s over {ENGINE_REPEATS} runs: {[round(x, 1) for x in tok_s]}; peak card "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    # [trace-vlm]: 16 decode steps after the prefill
+    logits, caches = model.prefill(params, batch, VLM_MAX_LEN)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(16):
+            logits, caches = model.decode_step(params, {"embeds": params["embed"][tok][:, None]},
+                                               caches, torch.tensor(s + i))
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    report_trace(prof, wall, "[trace-vlm]", f"16 decode steps, 8 rows at depth {s}")
+    del params, caches, logits
+    free_card()
+    return {"cli": first_counts, "per_forward": per_fwd, "tok_s": tok_s}
+
+
 def ssd_work(args, st, chunk) -> tuple:
     """Bytes the scan must move (x read, y written, B and C, dt, A, the
     fp32 state read and written) and flops it must do,
@@ -2974,8 +3446,8 @@ def flash_work(inp, extra) -> tuple:
     q, k = inp["q"], inp["k"]
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    mask = fa.visible_mask(inp["q_offsets"], inp["q_lens"], sq, sk, causal=True,
-                           window=extra.get("window"))
+    mask = fa.visible_mask(inp["q_offsets"], inp["q_lens"], sq, sk,
+                           causal=extra.get("causal", True), window=extra.get("window"))
     n_vis = mask.sum().item()                       # (row, query, key) triples
     keys_read = mask.any(dim=1).sum().item()        # (row, key) pairs read
     es = q.element_size()
@@ -2990,11 +3462,16 @@ def bound(byts, flops, dtype):
 
 
 def sdpa_call(inp, extra):
-    """One library call for the same function (yardstick only)."""
+    """One library call for the same function (yardstick only): with the
+    visible-key mask, or, for a non-causal call whose every row is valid
+    (nothing to mask), none, so that every backend may take it."""
     q, k, v = (t.transpose(1, 2) for t in (inp["q"], inp["k"], inp["v"]))
     b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
-    mask = fa.visible_mask(inp["q_offsets"], inp["q_lens"], sq, sk, causal=True,
-                           window=extra.get("window"))[:, None]
+    causal = extra.get("causal", True)
+    mask = None
+    if causal or extra.get("window") is not None or not bool((inp["q_lens"] == sq).all()):
+        mask = fa.visible_mask(inp["q_offsets"], inp["q_lens"], sq, sk, causal=causal,
+                               window=extra.get("window"))[:, None]
     if "enable_gqa" not in (F.scaled_dot_product_attention.__doc__ or ""):
         return None      # this PyTorch has no GQA in SDPA: no one-call yardstick
     return lambda: F.scaled_dot_product_attention(
@@ -3205,6 +3682,45 @@ def time_gg(dev, flush, rows, dtype) -> None:
             del inp, ref, lib_out
 
 
+def time_encdec_vlm(dev, flush, rows, dtype) -> None:
+    """This slice's new flash instances, L2 flushed before each call,
+    beside the bound and the fastest SDPA backend: seamless's non-causal
+    calls (D 64, 16 / 16) — the encoder's [1, 512] over 512 keys, the
+    cross-attention's decode rows [8, 1] and a chunk [8, 64] over 512
+    encoder keys — and qwen2-vl's GQA 28 / 4 (D 128, causal) at [8, 1] and
+    [8, 64] at random depths, dense; paged (P 64) through ``time_paged``."""
+    rng = np.random.default_rng(SEED + 13)
+    hk, hv = HEADS[SEAMLESS], HEADS[VLM]
+    cases = {
+        "noncausal_encoder_512": (
+            flash_inputs(dev, dtype, sq=512, depths=[0], q_lens=[512], sk=512, **hk),
+            {"causal": False}),
+        "noncausal_cross_decode_512": (
+            flash_inputs(dev, dtype, sq=1, depths=rng.integers(8, 128, size=8).tolist(),
+                         q_lens=[1] * 8, sk=512, **hk), {"causal": False}),
+        "noncausal_cross_chunk_512": (
+            flash_inputs(dev, dtype, sq=64, depths=[0] * 8, q_lens=[64] * 8, sk=512, **hk),
+            {"causal": False}),
+        "d128g7_decode": (
+            flash_inputs(dev, dtype, sq=1, depths=rng.integers(0, 2048, size=8).tolist(),
+                         q_lens=[1] * 8, **hv), {}),
+        "d128g7_chunk": (
+            flash_inputs(dev, dtype, sq=64, depths=rng.integers(0, 2048 - 64, size=8).tolist(),
+                         q_lens=[64] * 8, **hv), {}),
+    }
+    for case, (inp, extra) in cases.items():
+        b_ms, b_by = bound(*flash_work(inp, extra), dtype)
+        lib_ms, lib, sweep = time_sdpa(dev, inp, extra, iters=20, flush=flush)
+        rows[("flash_attention", case)] = dict(
+            ms=time_ms(dev, lambda: run_flash(fa.flash_attention, inp, extra), flush=flush),
+            plain_ms=time_ms(dev, lambda: run_flash(fa.flash_attention_plain, inp, extra),
+                             iters=10, flush=flush),
+            library_ms=lib_ms, library=f"SDPA ({lib})" if lib else None, sdpa_sweep=sweep,
+            bound_ms=b_ms, bound_by=b_by, shape=[list(inp["q"].shape), inp["k"].shape[1]],
+        )
+    time_paged(dev, flush, rows, VLM, "d128g7_", dtype)
+
+
 def phase_time(dev) -> dict:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)   # > 50 MB L2
     rows = {}
@@ -3218,6 +3734,7 @@ def phase_time(dev) -> dict:
     time_flash(dev, flush, rows, GEMMA, "d256_", dtype)
     time_paged(dev, flush, rows, GEMMA, "d256_", dtype)
     time_verify(dev, flush, rows, dtype)
+    time_encdec_vlm(dev, flush, rows, dtype)
     for (name, case), r in rows.items():
         if name == "flash_attention_paged":
             continue
@@ -3257,6 +3774,52 @@ def decode_entries(name, times, errs, clis) -> dict:
     return out
 
 
+def encdec_vlm_entries(name, times, errs, served_encdec, parity_encdec, served_vlm,
+                       parity_vlm) -> dict:
+    """The flash row's numbers on this slice's paths: launches in
+    [serve-encdec] (bf16, dense self cache) and [serve-vlm], or for the
+    paged kernel in the fp32 paged runs of [parity-encdec] and
+    [parity-vlm]; the timed non-causal and GQA 28 / 4 instances with their
+    [check] errors (bf16)."""
+    paged = name.endswith("paged")
+    enc = parity_encdec["paged"] if paged else served_encdec["cli"]
+    vlm = parity_vlm["paged"] if paged else served_vlm["cli"]
+    out = {
+        "encdec": {"launches": enc[name], "launches_from": "[parity-encdec] fp32 paged P64"
+                   if paged else "[serve-encdec] run 1",
+                   **({} if paged else {
+                       "noncausal_launches": enc["flash_attention_noncausal"],
+                       "launches_per_forward": served_encdec["per_forward"][name],
+                       "encode_launches": served_encdec["encode"][name]})},
+        "vlm": {"launches": vlm[name], "launches_from": "[parity-vlm] fp32 fused paged P64"
+                if paged else "[serve-vlm] run 1",
+                **({} if paged else {
+                    "launches_per_forward": served_vlm["per_forward"][name]})},
+    }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    if paged:
+        out["d128g7"] = {
+            case: dict({k: times[(name, "d128g7_" + case)][k] for k in keys},
+                       dense_ms=times[(name, "d128g7_" + case)]["dense_ms"],
+                       yardstick_sdpa_ms=times[(name, "d128g7_" + case)]["sdpa_ms"],
+                       max_abs_err=errs[(name, "d128g7_" + err, torch.bfloat16)])
+            for case, err in (("decode", "sq1"), ("fused_chunk", "sq64"))}
+        return out
+    out["noncausal"] = {
+        case: dict({k: times[(name, "noncausal_" + case)][k] for k in keys},
+                   shape=times[(name, "noncausal_" + case)]["shape"],
+                   max_abs_err=errs[(name, "noncausal_" + err, torch.bfloat16)])
+        for case, err in (("encoder_512", "encoder_S500"),
+                          ("cross_decode_512", "cross_decode_S500"),
+                          ("cross_chunk_512", "cross_chunk_S500"))}
+    out["d128g7"] = {
+        case: dict({k: times[(name, "d128g7_" + case)][k] for k in keys},
+                   shape=times[(name, "d128g7_" + case)]["shape"],
+                   max_abs_err=errs[(name, "d128g7_" + err, torch.bfloat16)])
+        for case, err in (("decode", "sq1"), ("chunk", "sq64"))}
+    return out
+
+
 def timed(fn, *args, **kw):
     """``fn(*args, **kw)``, and a line with its wall time (the script's
     budget is spent phase by phase)."""
@@ -3276,6 +3839,8 @@ def main() -> int:
     errs.update(timed(phase_check_gg_split, dev))
     errs.update(timed(phase_check_decode, dev))
     errs.update(timed(phase_check_verify, dev))
+    errs.update(timed(phase_check_noncausal, dev))
+    errs.update(timed(phase_check_gqa7, dev))
     errs.update(timed(phase_check_ssd, dev))
     errs.update(timed(phase_check_rmsnorm, dev))
     served = timed(phase_serve, dev)
@@ -3303,6 +3868,10 @@ def main() -> int:
     parity_ssm = timed(phase_parity_ssm, dev)
     timed(phase_trace_ssm, dev)
     timed(phase_parity_spec_ssm, dev)
+    parity_encdec = timed(phase_parity_encdec, dev)
+    served_encdec = timed(phase_serve_encdec, dev)
+    parity_vlm = timed(phase_parity_vlm, dev)
+    served_vlm = timed(phase_serve_vlm, dev)
     times = timed(phase_time, dev)
 
     # the split-KV decode kernel's numbers at each head dim, dense and paged
@@ -3368,6 +3937,12 @@ def main() -> int:
                 "max_abs_err": errs[(name, "d256_" + err_case, torch.bfloat16)],
             }
             row["decode"] = decode[name]
+            # this slice's paths: seamless (the encoder's and the
+            # cross-attention's non-causal calls on the dense kernel; the
+            # self-attention paged in [parity-encdec]) and qwen2-vl (GQA 28 /
+            # 4 at D 128)
+            row.update(encdec_vlm_entries(name, times, errs, served_encdec, parity_encdec,
+                                          served_vlm, parity_vlm))
             # a speculative round's verify rows, D 64 (llama): [8, 4] on the
             # decode kernel, [8, 5] on the chunk tile; launches: the verify
             # forwards of [parity-spec] (fp32) and [serve-spec] (k = 4, dense)
@@ -3409,7 +3984,9 @@ def main() -> int:
                        "rows_kernel": run["cli"]["rmsnorm_rows"]}
                 for arch, run in ((LLAMA, served), (MOE, served_moe), (QWEN3, served_qwen3),
                                   (GEMMA, served_gemma), (GEMMA2, served_gemma2),
-                                  (MAMBA, served_mamba), (ZAMBA, served_zamba))}
+                                  (MAMBA, served_mamba), (ZAMBA, served_zamba),
+                                  (SEAMLESS, served_encdec), (VLM, served_vlm))}
+            row["launches_by_config"][SEAMLESS]["encode_launches"] = served_encdec["encode"][name]
         kernels.append(row)
     # the split-KV decode kernel (and its merge) as kernels of their own:
     # D 64 at the top, D 128, D 80 and D 256 nested, as the chunk rows

@@ -3,7 +3,8 @@ fresh at the reference's init distributions.
 
 Both give the layout :class:`~repro_torch.serving.stage_executor.StageExecutor`
 and :mod:`repro_torch.models.transformer` take — the reference's keys, one
-dict per layer under ``"layers"`` (and the hybrid's ``"mamba_layers"``),
+dict per layer under ``"layers"`` (and the hybrid's ``"mamba_layers"``, the
+enc-dec model's ``"encoder"`` and ``"decoder"``),
 weights in the reference's ``x @ w`` orientation (``[d_in, d_out]``), norm
 weights fp32 in offset form — so a conversion is a copy.
 """
@@ -35,9 +36,9 @@ def params_from_jax(tree, device=None) -> Params:
     """Convert a reference param pytree (arrays, or numpy copies of them)
     into nested dicts of tensors with the same keys and dtypes, on
     ``device`` (default: the first card).  Stacked layer params (one dict of
-    ``[L, ...]`` arrays: ``layers`` at ``scan_layers=True``, and the
-    hybrid's ``mamba_layers`` always) are split into the per-layer lists the
-    port serves from."""
+    ``[L, ...]`` arrays: ``layers``, and the enc-dec model's ``encoder`` and
+    ``decoder``, at ``scan_layers=True``, and the hybrid's ``mamba_layers``
+    always) are split into the per-layer lists the port serves from."""
     device = resolve_device(device)
 
     def conv(node):
@@ -48,7 +49,7 @@ def params_from_jax(tree, device=None) -> Params:
         return _to_tensor(node, device)
 
     out = conv(dict(tree))
-    for key in ("layers", "mamba_layers"):
+    for key in ("layers", "mamba_layers", "encoder", "decoder"):
         layers = out.get(key)
         if isinstance(layers, dict):
             n = next(iter(_leaves(layers))).shape[0]
@@ -71,7 +72,7 @@ def _index(node, i):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Params:
-    """Fresh decoder params (dense, MoE, SSM or hybrid) at the reference's
+    """Fresh params of any family at the reference's
     distributions: dense weights ``normal · 1/√d_in``, embeddings
     ``normal · 0.02``, norms zero (offset form, fp32); an MoE layer's router
     fp32 ``[d, E_pad]`` at ``1/√d``, its experts ``w_gate``/``w_up``
@@ -82,10 +83,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
     conv weights ``normal · 0.1`` and zero conv biases in ``cfg.dtype``,
     and fp32 ``A_log = log(linspace(1, 16, H))``, ``D = 1`` and
     ``dt_bias = log(expm1(0.01))``; the hybrid adds ``shared_proj_in``
-    ``[2d, d]`` and one shared attention block.  Drawn in fp32 on
+    ``[2d, d]`` and one shared attention block.  The VLM family has the
+    dense layout.  The enc-dec family has ``encoder`` layers (``ln_attn``,
+    ``attn``, ``ln_mlp``, ``mlp``), ``decoder`` layers (``ln_self``,
+    ``self_attn``, ``ln_cross``, ``cross_attn``, ``ln_mlp``, ``mlp``) and
+    ``ln_enc_final`` beside the embedding, head and final norm.  Drawn in fp32 on
     ``generator``'s device, then cast to ``cfg.dtype`` on ``device``
     (default: the first card) — no JAX needed."""
-    check_family(cfg)
+    if cfg.family != "encdec":
+        check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg)
     gdev = generator.device
@@ -117,7 +123,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
     def norm(d):
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
-    def layer():
+    def attention():
         attn = {
             "wq": dense(cfg.d_model, cfg.n_heads * hd),
             "wk": dense(cfg.d_model, cfg.n_kv_heads * hd),
@@ -127,7 +133,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
         if cfg.qk_norm:
             attn["q_norm"] = norm(hd)
             attn["k_norm"] = norm(hd)
-        p = {"ln_attn": norm(cfg.d_model), "attn": attn, "ln_mlp": norm(cfg.d_model)}
+        return attn
+
+    def layer():
+        p = {"ln_attn": norm(cfg.d_model), "attn": attention(), "ln_mlp": norm(cfg.d_model)}
         if cfg.post_block_norm:
             p["ln_attn_post"] = norm(cfg.d_model)
             p["ln_mlp_post"] = norm(cfg.d_model)
@@ -165,7 +174,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
     p["ln_final"] = norm(cfg.d_model)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense(cfg.d_model, cfg.vocab_size)
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        p["ln_enc_final"] = norm(cfg.d_model)
+        p["encoder"] = [
+            {"ln_attn": norm(cfg.d_model), "attn": attention(), "ln_mlp": norm(cfg.d_model),
+             "mlp": mlp(cfg.d_ff)}
+            for _ in range(cfg.n_encoder_layers)
+        ]
+        p["decoder"] = [
+            {"ln_self": norm(cfg.d_model), "self_attn": attention(),
+             "ln_cross": norm(cfg.d_model), "cross_attn": attention(),
+             "ln_mlp": norm(cfg.d_model), "mlp": mlp(cfg.d_ff)}
+            for _ in range(cfg.n_layers)
+        ]
+    elif cfg.family == "hybrid":
         p["mamba_layers"] = [mamba_layer() for _ in range(cfg.n_layers)]
         # one SHARED attention block (weights reused at every occurrence)
         p["shared_proj_in"] = dense(2 * cfg.d_model, cfg.d_model)

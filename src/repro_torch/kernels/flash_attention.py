@@ -38,12 +38,15 @@ import torch
 from . import _build
 
 # kernel launches since the counts were last reset (the CPU path never
-# counts): every dense and every paged call, and of those the calls that
-# ran the split-KV decode kernel (at most _decode_rows rows per KV head)
+# counts): every dense and every paged call, of those the calls that ran the
+# split-KV decode kernel (at most _decode_rows rows per KV head), and the
+# dense calls without the causal mask (an encoder's self-attention, a
+# decoder's cross-attention)
 launches = 0
 paged_launches = 0
 decode_launches = 0
 paged_decode_launches = 0
+noncausal_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernel is built for: llama3.2-1b's (64), zamba2-2.7b's
@@ -215,7 +218,7 @@ def flash_attention(
     int32 (``q_lens=None`` → every row has ``Sq`` valid queries).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel, or
     raises on any input the kernel does not take."""
-    global launches, decode_launches
+    global launches, decode_launches, noncausal_launches
     b, sq, h, d = q.shape
     if q_lens is None:
         q_lens = torch.full((b,), sq, dtype=torch.int32, device=q.device)
@@ -243,6 +246,7 @@ def flash_attention(
     _build.check(err, "flash_attention_fwd")
     launches += 1
     decode_launches += _is_decode(q, kv)
+    noncausal_launches += not causal
     return out
 
 

@@ -61,6 +61,7 @@ from repro_torch.device import cuda_devices
 from repro_torch.models.model import build_model
 from repro_torch.serving.adaptation import AdaptationConfig
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.stage_executor import check_servable
 
 
 def serving_config(arch: str, smoke: bool):
@@ -79,6 +80,11 @@ def serving_setup(args):
     the config, the torch devices, the random weights, the modeled cluster
     and the plan config."""
     cfg = serving_config(args.arch, args.smoke)
+    try:
+        check_servable(cfg)
+    except NotImplementedError as e:
+        # a family served at the model level only: say so, not a traceback
+        raise SystemExit(f"[serve] {e}") from None
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device (use --device cpu)")

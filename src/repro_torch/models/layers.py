@@ -2,8 +2,9 @@
 
 Parameters are nested dicts of tensors, and weights keep the reference's
 ``x @ w`` orientation (``[d_in, d_out]``).  Attention supports GQA, causal
-and sliding-window masking, soft-capping (gemma2), qk-norm (qwen3) and RoPE,
-and three implementations:
+and sliding-window masking, soft-capping (gemma2), qk-norm (qwen3), RoPE and
+M-RoPE (qwen2-vl), enc-dec cross-attention (seamless), and three
+implementations:
 
 * ``naive``   — materializes the score matrix (oracle / small tests),
 * ``chunked`` — a loop over KV blocks with online softmax (the flash
@@ -71,17 +72,42 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [B, S, H, D]; positions: [B, S] (int).  Split-halves rotation in
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Split-halves rotation of x [B, S, H, D] by angles [B, S, D/2], in
     fp32, cast back."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                        # [D/2]
-    angles = positions[..., None].to(torch.float32) * freqs      # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (int).  Split-halves rotation in
+    fp32, cast back."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)               # [D/2]
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(
+    x: torch.Tensor,
+    positions: torch.Tensor,           # [3, B, S] — (t, h, w) position streams
+    theta: float,
+    sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the D/2 frequency slots are split into
+    (t, h, w) sections, each rotated by its own position stream."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim/2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                        # [D/2]
+    # per-slot positions [B, S, D/2]: slot j takes the stream of its section
+    pos_slots = torch.cat(
+        [positions[i][..., None].to(torch.float32).expand(*positions.shape[1:], sec)
+         for i, sec in enumerate(sections)],
+        dim=-1,
+    )
+    return _rotate(x, pos_slots * freqs)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -212,39 +238,57 @@ def multihead_attention(
     x: torch.Tensor,                  # [B, Sq, D_model]
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,          # [B, Sq]
+    positions: torch.Tensor,          # [B, Sq] (or [3, B, Sq] for M-RoPE)
     kv_cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v": [B,Smax,KV,hd]}, or
                                       # paged {"k","v": [num_pages+1,P,KV,hd], "table"}
     cache_pos=None,                   # scalar, or [B] per-row (#valid cache entries)
     layer_window: Optional[int] = None,
-    causal: Optional[bool] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # enc-dec cross attn
+    causal: Optional[bool] = None,    # None → causal for self, full for cross
     q_lens: Optional[torch.Tensor] = None,  # [B] valid query rows per batch row
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """GQA self-attention with RoPE.  Four cache paths: none; dense KV at a
+    """GQA attention with RoPE (M-RoPE when ``cfg.mrope_sections`` is set,
+    ``positions`` then ``[3, B, Sq]`` and masks following the temporal
+    stream).  Self-attention has four cache paths: none; dense KV at a
     scalar ``cache_pos``; dense ragged KV with a ``[B]`` ``cache_pos`` and
     optional ``q_lens``; paged KV (page pools and a ``[B, pages_per_slot]``
-    table).  The KV cache is updated in place.  Query rows at or beyond a
-    row's ``q_len`` come out as exact zeros from every impl."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP A11, VLM slice)")
+    table).  The KV cache is updated in place.  Cross-attention
+    (``cross_kv``: the encoder memory's K/V ``[B, S_enc, KV, hd]``) projects
+    and rotates only the queries, writes no cache and sees every encoder
+    key.  Query rows at or beyond a row's ``q_len`` come out as exact zeros
+    from every impl."""
     hd = cfg.resolved_head_dim
     b, sq, _ = x.shape
     kernels = uses_kernels(cfg)
     ragged = isinstance(cache_pos, torch.Tensor) and cache_pos.ndim > 0
     q = (x @ p["wq"]).reshape(b, sq, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, sq, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, sq, cfg.n_kv_heads, hd)
+    if cross_kv is None:
+        k = (x @ p["wk"]).reshape(b, sq, cfg.n_kv_heads, hd)
+        v = (x @ p["wv"]).reshape(b, sq, cfg.n_kv_heads, hd)
+    else:
+        k, v = cross_kv
 
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], kernel=kernels)
-        k = rmsnorm(k, p["k_norm"], kernel=kernels)
+        if cross_kv is None:
+            k = rmsnorm(k, p["k_norm"], kernel=kernels)
 
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q_pos = positions if ragged else positions[0]
+    # RoPE on self-attention only (seamless's cross K/V carry none).  q_pos:
+    # [Sq] shared across rows, or [B, Sq] per row (ragged: positions already
+    # carry each row's cache_pos)
+    if cross_kv is not None:
+        q_pos = positions[0] if positions.ndim == 2 else positions[0][0]
+    elif cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        q_pos = positions[0] if ragged else positions[0][0]   # the temporal stream
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        q_pos = positions if ragged else positions[0]
 
     new_cache = None
-    paged = kv_cache is not None and "table" in kv_cache
+    paged = kv_cache is not None and cross_kv is None and "table" in kv_cache
     if paged:
         pool_k, pool_v, table = kv_cache["k"], kv_cache["v"], kv_cache["table"]
         cp = cache_pos if cache_pos is not None else 0
@@ -257,7 +301,7 @@ def multihead_attention(
         if not kernels:
             # naive/chunked: gather the logical view once, then the dense path
             k, v = _paged_view(pool_k, table), _paged_view(pool_v, table)
-    elif kv_cache is not None:
+    elif kv_cache is not None and cross_kv is None:
         kcache, vcache = kv_cache["k"], kv_cache["v"]
         cp = cache_pos if cache_pos is not None else 0
         _write_kv(kcache, k, cp, q_lens if ragged else None)
@@ -268,9 +312,13 @@ def multihead_attention(
         # the causal test against q_pos also masks unwritten cache slots
         causal = True
     else:
-        k_pos1d = q_pos if q_pos.ndim == 1 else torch.arange(k.shape[1], device=x.device)
+        k_pos1d = (
+            q_pos
+            if cross_kv is None and q_pos.ndim == 1
+            else torch.arange(k.shape[1], device=x.device)
+        )
         if causal is None:
-            causal = True
+            causal = cross_kv is None
 
     g = k.shape[2]
     n_rep = cfg.n_heads // g

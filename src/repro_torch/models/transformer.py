@@ -6,6 +6,11 @@ Family wiring:
 
 * dense — llama3.2-1b, qwen3-14b (qk-norm), gemma-7b (GeGLU, head 256),
   gemma2-27b (local/global windows, softcaps, post-norms);
+* vlm — qwen2-vl-7b: the dense stack with M-RoPE; the vision tower is a
+  stub (as in the reference), so patch and text embeddings arrive
+  precomputed as ``batch["embeds"]`` ``[B, S, d_model]``, with optional
+  ``batch["positions"]`` ``[3, B, S]`` (t, h, w) streams (default: all
+  three equal to the token index);
 * moe — qwen2-moe-a2.7b (60 routed experts padded to 64, top-4, plus the
   shared experts merged into one FFN), arctic-480b (128 experts top-2 with
   a dense FFN in parallel): the routed experts go through
@@ -26,8 +31,8 @@ table passed to every forward as ``page_table``).  The SSM cache is
 ``{"layers": {"conv_x", "conv_B", "conv_C", "ssm"}}`` stacked over the
 layers (not paged: the state is O(1) per slot); the hybrid's is
 ``{"mamba": <that>, "attn": {"k", "v"}}`` with one dense row or page pool
-per shared-block occurrence.  Every cache is updated in place.  The VLM
-and enc-dec families raise ``NotImplementedError``.
+per shared-block occurrence.  Every cache is updated in place.  The enc-dec
+family has its own stack, :mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations
@@ -51,11 +56,12 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not serve yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: only dense, "
-            "MoE, SSM and hybrid decoders are (ROADMAP A11)"
+    """Raise for a family this decoder-only stack does not run: enc-dec has
+    its own (:mod:`repro_torch.models.encdec`), anything else is unknown."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(
+            f"family {cfg.family!r} ({cfg.name}) does not run on the decoder-only stack"
+            + (": use repro_torch.models.encdec" if cfg.family == "encdec" else "")
         )
 
 
@@ -176,17 +182,34 @@ def init_paged_cache(
 # --------------------------------------------------------------------------
 
 
+def _uses_embeds(cfg: ModelConfig) -> bool:
+    """Whether the model reads stub-frontend embeddings, not tokens."""
+    return cfg.frontend in ("patch_stub", "frame_stub")
+
+
+def _batch_shape(batch, cfg: ModelConfig) -> Tuple[int, int]:
+    return tuple((batch["embeds"] if _uses_embeds(cfg) else batch["tokens"]).shape[:2])
+
+
 def _embed_in(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Token embedding + positions."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet")
+    """Token or stub-frontend embedding + positions (``[3, B, S]`` streams
+    for M-RoPE: the batch's own, or the token index in all three)."""
     embed = params["embed"]
-    tokens = batch["tokens"].to(device=embed.device, dtype=torch.int64)
-    x = embed[tokens]
-    b, s = tokens.shape
+    if _uses_embeds(cfg):
+        x = batch["embeds"].to(device=embed.device, dtype=torch_dtype(cfg))
+    else:
+        x = embed[batch["tokens"].to(device=embed.device, dtype=torch.int64)]
+    b, s = x.shape[0], x.shape[1]
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    if cfg.mrope_sections is not None:
+        positions = batch.get("positions")
+        if positions is None:
+            pos1 = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+            positions = torch.stack([pos1, pos1, pos1])
+        positions = torch.as_tensor(positions).to(device=x.device, dtype=torch.int32)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     return x, positions
 
 
@@ -290,7 +313,9 @@ def forward(
         cp = torch.as_tensor(cache_pos).to(device=x.device, dtype=torch.int32)
         if cp.ndim == 0:
             positions = positions + cp
-        else:
+        elif cfg.mrope_sections is not None:       # positions: [3, B, S]
+            positions = positions + cp[None, :, None]
+        else:                                      # positions: [B, S]
             positions = positions + cp[:, None]
         cache_pos = cp
     if q_lens is not None:
@@ -316,7 +341,7 @@ def forward(
 
 def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
     """Run the prompt, return (last_logits, caches)."""
-    b, s = batch["tokens"].shape
+    b, s = _batch_shape(batch, cfg)
     max_len = max_len or s
     caches = init_cache(cfg, b, max_len, device=params["embed"].device)
     # SSM/hybrid: cache_pos=None is a fresh recurrent state
@@ -339,8 +364,21 @@ def prefill_chunked(
     """Chunked prefill: the prompt in ``chunk``-token pieces, each written at
     its absolute offset — greedy-token-identical to :func:`prefill`.
     ``caches``/``page_table`` continue an existing (possibly paged) cache;
-    ``start`` skips prompt tokens whose KV the cache already holds."""
-    b, s = batch["tokens"].shape
+    ``start`` skips prompt tokens whose KV the cache already holds.
+
+    A batch that carries M-RoPE ``positions`` is refused: the reference
+    slices the tokens and embeddings per chunk but not the positions
+    (``src/repro/models/transformer.py:579-581``), so its chunks meet
+    whole-prompt streams and fail inside M-RoPE; the port copies neither
+    the crash nor a position rule the reference lacks.  Chunk a VLM prompt
+    at the default streams, or prefill it whole."""
+    if "positions" in batch:
+        raise ValueError(
+            "prefill_chunked takes no batch['positions']: the reference drops them per "
+            "chunk (src/repro/models/transformer.py:579-581) and its chunks then fail "
+            "inside M-RoPE; prefill the prompt whole, or chunk it at the default streams"
+        )
+    b, s = _batch_shape(batch, cfg)
     if chunk <= 0:
         raise ValueError(f"chunk must be > 0, got {chunk}")
     if not 0 <= start < s:
@@ -352,7 +390,10 @@ def prefill_chunked(
     off = start
     while off < s:
         n = min(chunk, s - off)
-        sub = dict(batch, tokens=batch["tokens"][:, off : off + n])
+        sub = dict(batch)
+        for key in ("tokens", "embeds"):
+            if key in sub:
+                sub[key] = sub[key][:, off : off + n]
         logits, caches = forward(
             params, sub, cfg, caches=caches,
             cache_pos=torch.tensor(off, dtype=torch.int32), page_table=page_table,
@@ -362,8 +403,8 @@ def prefill_chunked(
 
 
 def decode_step(params, token_batch, caches, cache_pos, cfg: ModelConfig, *, page_table=None):
-    """One-token step: tokens [B,1]; ``cache_pos`` is a scalar or a ``(B,)``
-    int32 vector (ragged batch)."""
+    """One-token step: tokens [B,1] (or embeds [B,1,D]); ``cache_pos`` is a
+    scalar or a ``(B,)`` int32 vector (ragged batch)."""
     logits, new_caches = forward(
         params, token_batch, cfg, caches=caches, cache_pos=cache_pos,
         page_table=page_table,

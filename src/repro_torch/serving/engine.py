@@ -85,11 +85,12 @@
   plain greedy decode (:mod:`repro_torch.models.speculative`).
   Per-request-class acceptance rates are reported in
   ``straggler_report()["speculation"]``,
-* **not served here**: an SSM or hybrid model (mamba2, zamba2) raises
-  ``NotImplementedError``, and an SSM or hybrid draft ``ValueError``: as
-  in the reference, those families are served at the model level only
-  (``build_model(cfg).fused_step``, ``speculative.spec_generate``), never
-  through the engine's stage executor.
+* **not served here**: an SSM, hybrid, enc-dec or VLM model (mamba2,
+  zamba2, seamless, qwen2-vl) raises ``NotImplementedError``, and an SSM
+  or hybrid draft ``ValueError``: as in the reference, those families are
+  served at the model level only (``build_model(cfg).fused_step``,
+  ``speculative.spec_generate``), never through the engine's stage
+  executor.
 
 The port runs on ``torch`` devices (default: every visible CUDA card) and
 keeps the reference's host-side logic — planning, admission, adaptation,

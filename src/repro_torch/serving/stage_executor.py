@@ -78,14 +78,16 @@ def stages_from_placement(
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise for a model the executor cannot serve: an unported family, or
-    an SSM/hybrid one, which runs at the model level only (as in the
-    reference, whose executor applies attention blocks to every layer)."""
-    if cfg.family in ("ssm", "hybrid"):
+    """Raise ``NotImplementedError`` for a model the executor cannot serve:
+    an SSM, hybrid, enc-dec or VLM one, which runs at the model level only,
+    as in the reference (whose executor applies attention blocks to every
+    layer of ``params["layers"]`` on token embeddings: it fails on a Mamba
+    layer, on the enc-dec model's missing ``"layers"`` and inside M-RoPE)."""
+    if cfg.family in ("ssm", "hybrid", "encdec", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the stage executor and the serving engine serve "
-            f"attention-family blocks only; the {cfg.family} family runs at the model "
-            "level through repro_torch.models.model.build_model(cfg) and its entry "
+            f"decoder-only attention models on tokens; the {cfg.family} family runs at the "
+            "model level through repro_torch.models.model.build_model(cfg) and its entry "
             "points prefill, prefill_chunked, decode_step and fused_step"
         )
     transformer.check_family(cfg)

@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``repro_torch`` imports with JAX
-blocked, and no source under ``src/repro_torch/`` (nor ``chip_smoke.py``
-and ``time_grouped_gemm.py``) imports ``jax`` or anything of ``repro``."""
+blocked, and no source under ``src/repro_torch/`` (nor ``chip_smoke.py``,
+``time_grouped_gemm.py`` and the ``tests/_mrope_streams.py`` they import)
+imports ``jax`` or anything of ``repro``."""
 
 import os
 import re
@@ -18,7 +19,8 @@ _IMPORT = re.compile(
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_grouped_gemm.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_grouped_gemm.py",
+                                         ROOT / "tests" / "_mrope_streams.py"]
     return [f for f in files if f.exists()]
 
 
@@ -67,6 +69,24 @@ def test_every_module_imports_with_jax_blocked():
         "    from repro_torch.models.speculative import spec_generate\n"
         "    spec_generate(m, p, m, p, [[1, 2, 3]], [3], spec_tokens=2, chunk=2, max_len=16,"
         " page_tokens=4)\n"
+        # ...and the enc-dec and VLM families through the model facade,
+        # paged and fused
+        "for arch in ('seamless-m4t-large-v2', 'qwen2-vl-7b'):\n"
+        "    cfg = get_config(arch).smoke()\n"
+        "    m = build_model(cfg)\n"
+        "    p = m.init(torch.Generator().manual_seed(0), 'cpu')\n"
+        "    if cfg.family == 'encdec':\n"
+        "        b = {'frames': torch.ones((2, 3, cfg.d_model)), 'tokens': toks}\n"
+        "        _, c = m.prefill(p, b, 16)\n"
+        "        pc = m.init_paged_cache(4, 8, 2, 'cpu')\n"
+        "        m.prefill_chunked(p, b, 16, chunk=2, self_cache=pc['self'],"
+        " page_table=torch.tensor([[0, 1], [2, 3]]))\n"
+        "        m.fused_step(p, {'tokens': toks}, c, [0, 0], [5, 3])\n"
+        "    else:\n"
+        "        b = {'embeds': torch.ones((2, 5, cfg.d_model))}\n"
+        "        m.prefill(p, b, 16)\n"
+        "        c = m.init_paged_cache(4, 8, 2, 'cpu')\n"
+        "        m.fused_step(p, b, c, [0, 0], [5, 3], page_table=torch.tensor([[0, 1], [2, 3]]))\n"
         "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " if sys.modules[m] is not None]\n"
         "print(len(names))\n"

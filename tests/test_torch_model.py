@@ -119,10 +119,28 @@ def test_chunked_prefill_matches_whole_prefill():
     assert int(whole.argmax()) == int(chunked.argmax())
 
 
-def test_unported_families_raise():
-    for arch in ("seamless-m4t-large-v2", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError):
-            t_build_model(t_get_config(arch).smoke())
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-7b"])
+def test_engine_and_executor_refuse_encdec_and_vlm(arch, capsys):
+    """Both families build and run at the model level, but the reference's
+    engine serves neither (``KeyError: 'layers'`` for enc-dec, an
+    ``IndexError`` inside M-RoPE for the VLM at its first step): the port's
+    engine and executor refuse at construction, and its serve CLI exits
+    with the same message, each naming the model-level entry points."""
+    from repro_torch.core.devices import h100_cluster
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.serving.engine import ServingEngine as TServingEngine
+
+    cfg = t_get_config(arch).smoke()
+    model = t_build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="model level.*fused_step"):
+        TServingEngine(cfg, params, h100_cluster(1), devices=[cpu], slots=2, max_len=32)
+    stage = TStage(device=cpu, layer_ids=list(range(cfg.n_layers)), first=True, last=True)
+    with pytest.raises(NotImplementedError, match="prefill, prefill_chunked, decode_step"):
+        TStageExecutor(cfg, params, [stage])
+    with pytest.raises(SystemExit, match=f"{cfg.family} family runs at the model level"):
+        t_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 def test_init_params_layout_and_distributions():
