@@ -1,5 +1,6 @@
 """Parameters for the port: carried over from the JAX reference, or made
-fresh at the reference's init distributions.
+fresh at the reference's init distributions; and the reference's
+optimizer state carried over (:func:`opt_state_from_jax`).
 
 Both give the layout :class:`~repro_torch.serving.stage_executor.StageExecutor`
 and :mod:`repro_torch.models.transformer` take — the reference's keys, one
@@ -57,6 +58,20 @@ def params_from_jax(tree, device=None) -> Params:
     return out
 
 
+def opt_state_from_jax(state, device=None) -> Params:
+    """Convert a reference optimizer state (``train.optimizer.
+    init_opt_state``'s tree: ``m`` and ``v`` like the params, fp32 or
+    quant8 ``{"q", "s"}`` leaves, and the int32 ``step``) into the port's,
+    on ``device`` (default: the first card): the moments split per layer
+    as :func:`params_from_jax` splits the params."""
+    device = resolve_device(device)
+    return {
+        "m": params_from_jax(state["m"], device),
+        "v": params_from_jax(state["v"], device),
+        "step": _to_tensor(state["step"], device),
+    }
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -89,7 +104,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
     ``self_attn``, ``ln_cross``, ``cross_attn``, ``ln_mlp``, ``mlp``) and
     ``ln_enc_final`` beside the embedding, head and final norm.  Drawn in fp32 on
     ``generator``'s device, then cast to ``cfg.dtype`` on ``device``
-    (default: the first card) — no JAX needed."""
+    (default: the first card) — no JAX needed.  On the ``meta`` device
+    nothing is drawn: the tree has the shapes and dtypes only."""
     if cfg.family != "encdec":
         check_family(cfg)
     device = resolve_device(device)
@@ -98,6 +114,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Pa
     hd = cfg.resolved_head_dim
 
     def normal(shape, std, dtype=dt):
+        if device.type == "meta":        # shapes only: nothing drawn
+            return torch.empty(shape, dtype=dtype, device=device)
         w = torch.randn(shape, generator=generator, device=gdev, dtype=torch.float32)
         return (w * std).to(device=device, dtype=dtype)
 

@@ -122,6 +122,8 @@ class PlanConfig:
         Policy-gradient iterations for the ``"placeto"`` baseline.
     seed:
         RNG seed for stochastic planners (placeto).
+    placeto_device:
+        Device the placeto policy trains on (``None``: the first card).
     replicas / slo_p99 / slo_rate / max_replicas:
         Replica-partitioning knobs consumed by
         :func:`repro_torch.core.replica.plan_replicas` (re-exported here):
@@ -224,6 +226,10 @@ class PlanConfig:
     pair_budget: int = 2500          # max non-overlap binaries for exact MILP
     placeto_iters: int = 150
     seed: int = 0
+    # where the placeto policy trains: None = the first card, "cpu" on a
+    # host without one (the port's addition: the reference runs it on JAX's
+    # default device)
+    placeto_device: Optional[str] = None
     # ---- replica partitioning (read by core.replica.plan_replicas ONLY;
     # plan() itself ignores these, so single-pipeline planning is untouched)
     # "auto" = search replica counts 1..max_replicas jointly with per-replica
@@ -463,10 +469,18 @@ def plan(
         res = bottleneck_balance(work, cost, serving_slots=slots)
         coarse_placement = res.placement
     elif cfg.method == "placeto":
-        raise NotImplementedError(
-            "method='placeto' is not ported yet (ROADMAP A12: its REINFORCE "
-            "policy needs torch autograd)"
+        from .placeto import placeto  # lazy: pulls in torch
+
+        res = placeto(
+            work,
+            cost,
+            iters=cfg.placeto_iters,
+            seed=cfg.seed,
+            objective=cfg.objective,
+            serving_slots=slots,
+            device=cfg.placeto_device,
         )
+        coarse_placement = res.placement
     elif cfg.method == "round_robin":
         res = round_robin(work, cost, serving_slots=slots)
         coarse_placement = res.placement

@@ -13,8 +13,8 @@ holds page pools ``[L, num_pages + 1, P, KV, hd]`` instead (the page table
 rides into each call as ``page_table``), while the cross K/V stay dense:
 encoder-length, written once, never grown.  Unlike the reference, the
 self-attention cache is written in place.  Parameters hold one dict per
-layer under ``"encoder"`` and ``"decoder"``; ``scan_layers`` and ``remat``
-are ignored, as in :mod:`repro_torch.models.transformer`.
+layer under ``"encoder"`` and ``"decoder"``; ``scan_layers`` is ignored,
+and ``remat`` applies to the training forward only.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .layers import Params, mlp, multihead_attention, rmsnorm, uses_kernels
-from .transformer import torch_dtype
+from .transformer import check_trainable, remat as remat_fn, torch_dtype
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -42,14 +42,17 @@ def _enc_block(layer_p, x, cfg, positions):
     return x + mlp(layer_p["mlp"], h, cfg.activation)
 
 
-def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *, remat: bool = False
+           ) -> torch.Tensor:
     """frames ``[B, S_enc, D]`` (the stub frontend's output) → memory
-    ``[B, S_enc, D]``, on the parameters' device in ``cfg.dtype``."""
+    ``[B, S_enc, D]``, on the parameters' device in ``cfg.dtype``.
+    ``remat``: recompute each block in the backward pass (training)."""
     x = frames.to(device=params["embed"].device, dtype=torch_dtype(cfg))
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
+    block = remat_fn(_enc_block, remat)
     for layer_p in params["encoder"]:
-        x = _enc_block(layer_p, x, cfg, positions)
+        x = block(layer_p, x, cfg, positions)
     return rmsnorm(x, params["ln_enc_final"], kernel=uses_kernels(cfg))
 
 
@@ -92,12 +95,18 @@ def _dec_block(layer_p, x, cfg, positions, memory_kv, self_cache, cache_pos,
     return x + mlp(layer_p["mlp"], h, cfg.activation)
 
 
+def _dec_block_from_memory(layer_p, x, cfg, positions, memory):
+    return _dec_block(layer_p, x, cfg, positions, _cross_kv(layer_p, memory, cfg), None, None)
+
+
 def decode_stack(params, tokens, cfg, memory=None, cross_cache=None, self_cache=None,
-                 cache_pos=None, q_lens=None, page_table=None):
+                 cache_pos=None, q_lens=None, page_table=None, *, remat: bool = False):
     """The decoder over ``tokens`` ``[B, S]``: cross K/V from
     ``cross_cache`` (or computed from ``memory``), the self-attention cache
     written in place at ``cache_pos`` (a scalar, or ``[B]`` per-row depths).
-    Returns (logits ``[B, S, V]``, the self cache)."""
+    Returns (logits ``[B, S, V]``, the self cache).  ``remat`` (training,
+    no cache): recompute each block, cross K/V included, in the backward
+    pass."""
     embed = params["embed"]
     x = embed[tokens.to(device=embed.device, dtype=torch.int64)]
     b, s = tokens.shape
@@ -113,6 +122,9 @@ def decode_stack(params, tokens, cfg, memory=None, cross_cache=None, self_cache=
     if page_table is not None:
         page_table = torch.as_tensor(page_table).to(device=x.device, dtype=torch.int32)
     for i, layer_p in enumerate(params["decoder"]):
+        if remat:
+            x = remat_fn(_dec_block_from_memory, True)(layer_p, x, cfg, positions, memory)
+            continue
         if cross_cache is not None:
             kv = (cross_cache["k"][i], cross_cache["v"][i])
         else:
@@ -132,6 +144,15 @@ def decode_stack(params, tokens, cfg, memory=None, cross_cache=None, self_cache=
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
+
+
+def train_forward(params, batch, cfg: ModelConfig):
+    """The training forward: encode ``batch["frames"]``, then the decoder
+    over ``batch["tokens"]`` with no cache; returns (logits, aux loss 0)."""
+    check_trainable(cfg)
+    memory = encode(params, batch["frames"], cfg, remat=cfg.remat)
+    logits, _ = decode_stack(params, batch["tokens"], cfg, memory=memory, remat=cfg.remat)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def init_self_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

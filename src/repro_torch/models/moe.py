@@ -17,7 +17,9 @@ qwen2-moe's 60 routed experts are padded to 64 (padding experts' router
 logits are -1e30, so they are never chosen); arctic's parallel dense FFN
 and qwen2-moe's merged shared experts are added by the caller
 (``transformer.block_apply``).  The reference's load-balancing auxiliary
-loss is a training term: serving ignores it, and the port drops it.
+loss (Switch-style, ``E · Σ_e f_e · P_e``) is a training term: the serving
+path never computes it; ``with_aux=True`` (the training forward) returns it
+beside the output.
 """
 
 from __future__ import annotations
@@ -34,20 +36,30 @@ Params = Dict[str, Any]
 
 
 def router_topk(
-    p_router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    p_router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig, *, with_aux: bool = False
+) -> Tuple[torch.Tensor, ...]:
     """Returns (weights ``[T, k]`` fp32, experts ``[T, k]`` int64) for flat
     tokens ``x [T, D]``: softmax over fp32 router logits, padding experts
-    forced to -1e30, top-k, optionally renormalised."""
+    forced to -1e30, top-k, optionally renormalised.  ``with_aux=True``
+    appends the load-balancing loss ``E_real · Σ_e mean_t(P_te) · f_e``
+    (``f_e``: the share of the ``T·k`` choices that went to expert ``e``)."""
     e_real, e_pad = cfg.n_experts, cfg.n_experts_padded or cfg.n_experts
-    logits = x.float() @ p_router                         # [T, Epad], a new tensor
+    # a new tensor, and matmul does not save its output for backward: the
+    # padding columns can be written in place under autograd too
+    logits = x.float() @ p_router                         # [T, Epad]
     if e_pad > e_real:
         logits[:, e_real:] = -1e30
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.router_norm_topk:
         weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
-    return weights, experts
+    if not with_aux:
+        return weights, experts
+    me = probs.mean(dim=0)                                # mean prob per expert
+    flat = experts.reshape(-1)
+    ce = torch.zeros_like(me).index_add_(0, flat, torch.ones_like(flat, dtype=me.dtype))
+    aux = e_real * torch.sum(me * (ce / flat.numel()))
+    return weights, experts, aux
 
 
 def moe_reference(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -66,8 +78,11 @@ def moe_reference(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(b, s, d)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kernel: bool = False) -> torch.Tensor:
-    """Sorted dispatch through the grouped GEMM.  x: ``[B, S, D]`` → y.
+def moe_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, *, kernel: bool = False, with_aux: bool = False,
+):
+    """Sorted dispatch through the grouped GEMM.  x: ``[B, S, D]`` → y, or
+    (y, the router's load-balancing loss) with ``with_aux=True``.
 
     Every row of the batch is routed, padding rows of a fused step included
     (as the reference does); a valid row's result does not depend on them.
@@ -80,7 +95,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kernel: bool = Fa
     k = cfg.top_k
     e_pad = cfg.n_experts_padded or cfg.n_experts
     xt = x.reshape(b * s, d)
-    weights, experts = router_topk(p["router"], xt, cfg)  # [T, k]
+    routed = router_topk(p["router"], xt, cfg, with_aux=with_aux)
+    weights, experts = routed[0], routed[1]               # [T, k]
     flat = experts.reshape(-1)                            # [T·k]
     order = torch.argsort(flat, stable=True)              # (token, choice) slots by expert
     # rows per expert, counted on the device (torch.bincount would read the
@@ -94,5 +110,5 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kernel: bool = Fa
     ys = gemm(F.silu(gate) * up, p["w_down"], group_sizes)
     # back to (token, choice) order: slot order[j] gets sorted row j
     y = torch.empty_like(ys).index_copy_(0, order, ys).reshape(b * s, k, d)
-    y = (y * weights[..., None].to(y.dtype)).sum(1)
-    return y.reshape(b, s, d)
+    y = (y * weights[..., None].to(y.dtype)).sum(1).reshape(b, s, d)
+    return (y, routed[2]) if with_aux else y

@@ -1,6 +1,7 @@
 """Decoder-only transformer stack of the port, with a dense or paged KV
 cache and the entry points the serving path calls: ``prefill``,
-``prefill_chunked``, ``decode_step`` and ``fused_step``.
+``prefill_chunked``, ``decode_step`` and ``fused_step``; and the trainer's,
+``train_forward`` (no cache, returns the MoE load-balancing loss).
 
 Family wiring:
 
@@ -23,9 +24,11 @@ Family wiring:
 
 Parameters hold one dict per layer (``params["layers"]``, and the
 hybrid's ``params["mamba_layers"]``, are lists), the serving layout,
-whatever ``cfg.scan_layers`` says; ``remat`` is a training knob and is
-ignored.  The dense/MoE KV cache is ``{"layers": {"k", "v"}}`` with one
-``[L, B, max_len, KV, hd]`` tensor each (dense) or one
+whatever ``cfg.scan_layers`` says; ``remat`` is a training knob: the
+training forward, :func:`train_forward`, recomputes each block in the
+backward pass when it is set (``torch.utils.checkpoint``, the counterpart
+of ``jax.checkpoint``).  The dense/MoE KV cache is ``{"layers": {"k",
+"v"}}`` with one ``[L, B, max_len, KV, hd]`` tensor each (dense) or one
 ``[L, num_pages + 1, P, KV, hd]`` page pool each (paged, with the page
 table passed to every forward as ``page_table``).  The SSM cache is
 ``{"layers": {"conv_x", "conv_B", "conv_C", "ssm"}}`` stacked over the
@@ -41,6 +44,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -88,8 +92,10 @@ def block_apply(
     kv_cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_pos=None,
     q_lens: Optional[torch.Tensor] = None,   # [B] fused-batch valid rows
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One transformer block; returns (x, new_cache)."""
+    with_aux: bool = False,
+) -> Tuple[Any, ...]:
+    """One transformer block; returns (x, new_cache), and the MoE router's
+    load-balancing loss third with ``with_aux=True`` (0 for a dense FFN)."""
     kernels = uses_kernels(cfg)
     h = rmsnorm(x, p["ln_attn"], kernel=kernels)
     attn_out, new_cache = multihead_attention(
@@ -105,8 +111,11 @@ def block_apply(
     x = x + attn_out
 
     h = rmsnorm(x, p["ln_mlp"], kernel=kernels)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
-        ff_out = moe_apply(p["moe"], h, cfg, kernel=kernels)
+        ff_out = moe_apply(p["moe"], h, cfg, kernel=kernels, with_aux=with_aux)
+        if with_aux:
+            ff_out, aux = ff_out
         if "mlp" in p:                       # arctic: dense FFN in parallel
             ff_out = ff_out + mlp(p["mlp"], h, cfg.activation)
         if "shared_mlp" in p:                # qwen2-moe shared experts
@@ -115,6 +124,8 @@ def block_apply(
         ff_out = mlp(p["mlp"], h, cfg.activation)
     if cfg.post_block_norm:
         ff_out = rmsnorm(ff_out, p["ln_mlp_post"], kernel=kernels)
+    if with_aux:
+        return x + ff_out, new_cache, aux
     return x + ff_out, new_cache
 
 
@@ -337,6 +348,77 @@ def forward(
             params, x, cfg, positions, caches, cache_pos, q_lens, page_table
         )
     return _logits_out(params, x, cfg), new_caches
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config whose forward runs the port's hand-written
+    kernels: they are forward-only (no autograd rule), and the reference
+    has no backward kernel either (no ``custom_vjp``; eager ``jax.grad``
+    through its Pallas flash kernel raises, and its jitted step falls back
+    to ``chunked``).  Train at ``attention_impl="chunked"`` or
+    ``"naive"``."""
+    if uses_kernels(cfg):
+        raise ValueError(
+            f"{cfg.name}: attention_impl='pallas' runs the hand-written CUDA kernels, which "
+            "are forward-only (no backward kernel, no autograd rule); the reference's jitted "
+            "train step trains on 'chunked' too. Train with attention_impl='chunked'"
+        )
+
+
+def remat(fn, on: bool):
+    """``fn``, recomputed in the backward pass when ``on`` (a block's
+    activations are not kept for backward)."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def train_forward(params, batch, cfg: ModelConfig):
+    """The training forward: (logits ``[B, S, V]``, aux loss) over the whole
+    sequence, with no cache — nothing is written in place.  The aux loss is
+    the sum over blocks of the MoE router's load-balancing term (0 for the
+    other families).  Each block (a transformer block, a Mamba layer, the
+    hybrid's shared block) is recomputed in the backward pass when
+    ``cfg.remat`` is set.  Raises for a kernel config
+    (:func:`check_trainable`)."""
+    check_family(cfg)
+    check_trainable(cfg)
+    x, positions = _embed_in(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def mamba(layer_p, x):
+        out, _ = mamba2_block(layer_p["mamba"], rmsnorm(x, layer_p["ln"]), cfg)
+        return x + out
+
+    mamba_fn = remat(mamba, cfg.remat)
+    if cfg.family == "ssm":
+        for layer_p in params["layers"]:
+            x = mamba_fn(layer_p, x)
+    elif cfg.family == "hybrid":
+        def shared(x, x_embed):
+            u = torch.cat([x, x_embed], dim=-1) @ params["shared_proj_in"]
+            u, _ = block_apply(params["shared_block"], u, cfg, positions=positions, window=1 << 30)
+            return x + u
+
+        shared_fn, x_embed = remat(shared, cfg.remat), x
+        every = cfg.shared_attn_every
+        for seg in range(_n_shared(cfg)):
+            for i in range(seg * every, (seg + 1) * every):
+                x = mamba_fn(params["mamba_layers"][i], x)
+            x = shared_fn(x, x_embed)
+    else:
+        windows = _layer_windows(cfg)
+
+        def block(layer_p, x, window):
+            x, _, a = block_apply(layer_p, x, cfg, positions=positions, window=window,
+                                  with_aux=True)
+            return x, a
+
+        block_fn = remat(block, cfg.remat)
+        for i, layer_p in enumerate(params["layers"]):
+            x, a = block_fn(layer_p, x, windows[i])
+            aux = aux + a
+    return _logits_out(params, x, cfg), aux
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):

@@ -1,0 +1,149 @@
+"""AdamW optimizer, hand-rolled as in the reference (no ``torch.optim``), on
+the port's param trees.
+
+State: first/second moments in fp32 (+ step counter), or 8-bit moments
+(int8 ``q`` + per-row fp32 scales ``s``).  The update is functional — new
+tensors for the params and the state, the old ones untouched — so a caller
+can drop a step (the train loop's NaN breaker) by keeping what it had.
+The reference's ZeRO-1 shardings (``zero1_shardings``) need a device mesh
+and are not ported (ROADMAP A13, with ``parallel/``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, Tuple
+
+import torch
+
+from .tree import is_quant_leaf, leaves, tree_map
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def init_opt_state(params, *, quant8: bool = False) -> Dict[str, Any]:
+    """quant8: store moments as int8 + per-row fp32 scales (8-bit Adam à la
+    Dettmers) — 2 bytes/param of optimizer state instead of 8.  Every
+    tensor lives on its param's device."""
+    some = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=some.device)
+    if not quant8:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": step}
+
+    def qzeros(p):
+        scale_shape = tuple(p.shape[:-1]) + (1,) if p.ndim >= 1 else (1,)
+        return {
+            "q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+            "s": torch.zeros(scale_shape, dtype=torch.float32, device=p.device),
+        }
+
+    return {"m": tree_map(qzeros, params), "v": tree_map(qzeros, params), "step": step}
+
+
+def is_quant_state(state) -> bool:
+    """Whether the moments are 8-bit."""
+    return any(is_quant_leaf(x) for x in leaves(state["m"], is_quant_leaf))
+
+
+def _dequant(qs) -> torch.Tensor:
+    return qs["q"].to(torch.float32) * qs["s"]
+
+
+def _quant(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    if x.ndim >= 1:
+        s = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0
+    else:
+        s = torch.abs(x) / 127.0
+    s = torch.clamp_min(s, 1e-12)
+    q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup over ``warmup_steps``, then a cosine down to
+    ``min_lr_frac · lr`` at ``total_steps`` (fp32, on ``step``'s device)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp_max(step / max(cfg.warmup_steps, 1), 1.0)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0
+    )
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """√(Σ x²) over every leaf, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)))
+
+
+def decay_mask(params, stacked: Iterable[str] = ()) -> Any:
+    """Which params take weight decay: the matrices.  The reference applies
+    its ``ndim >= 2`` test to its own layout, where the layer groups named
+    in ``stacked`` (top-level keys) are one ``[L, ...]`` array each, so
+    there a per-layer vector counts as a matrix; the port keeps one dict
+    per layer, so such a leaf counts one more dim here."""
+    stacked = set(stacked)
+    out = {}
+    for k in params:
+        extra = 1 if k in stacked else 0
+        out[k] = tree_map(lambda p, e=extra: p.ndim + e >= 2, params[k])
+    return out
+
+
+def adamw_update(
+    cfg: AdamWConfig, params, grads, state, *, decay=None
+) -> Tuple[Any, Dict[str, Any], torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm).  Gradients are clipped to
+    ``grad_clip`` by their global norm and taken in fp32; decoupled weight
+    decay on matrices only (or where the ``decay`` tree of bools says,
+    :func:`decay_mask`); each new param is cast back to its dtype."""
+    quant8 = is_quant_state(state)
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bias1 = 1 - torch.pow(b1, stepf)
+    bias2 = 1 - torch.pow(b2, stepf)
+
+    if decay is None:
+        decay = tree_map(lambda p: p.ndim >= 2, params)
+
+    def upd(p, g, m, v, dec):
+        if quant8:
+            m, v = _dequant(m), _dequant(v)
+        g = g.to(torch.float32) * clip
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mhat = m / bias1
+        vhat = v / bias2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if dec:  # decoupled weight decay on matrices only
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        newp = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if quant8:
+            m, v = _quant(m), _quant(v)
+        return (newp, m, v)
+
+    out = tree_map(upd, params, grads, state["m"], state["v"], decay)
+    is3 = lambda x: isinstance(x, tuple) and len(x) == 3  # noqa: E731
+    new_params = tree_map(lambda t: t[0], out, is_leaf=is3)
+    new_m = tree_map(lambda t: t[1], out, is_leaf=is3)
+    new_v = tree_map(lambda t: t[2], out, is_leaf=is3)
+    return new_params, {"m": new_m, "v": new_v, "step": step}, gnorm

@@ -24,7 +24,7 @@ def _sources():
     return [f for f in files if f.exists()]
 
 
-def test_every_module_imports_with_jax_blocked():
+def test_every_module_imports_with_jax_blocked(tmp_path):
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -33,6 +33,27 @@ def test_every_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        # the trainer's and the planner tools' modules are among them
+        "assert {'repro_torch.core.placeto', 'repro_torch.data.pipeline',"
+        " 'repro_torch.launch.train', 'repro_torch.launch.calibrate_invariant'} <= set(names)\n"
+        "assert {'repro_torch.train.' + m for m in ('checkpoint', 'compression', 'loop',"
+        " 'optimizer', 'step', 'tree')} <= set(names)\n"
+        # ...and they run: the train CLI (with a resume), the calibration
+        # and a placeto plan
+        "from repro_torch.launch.train import main as train_main\n"
+        f"argv = ['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--steps', '2',"
+        f" '--checkpoint-every', '1', '--global-batch', '2', '--seq-len', '8',"
+        f" '--checkpoint-dir', {str(tmp_path / 'ckpt')!r}]\n"
+        "train_main(argv)\n"
+        "train_main(argv[:6] + ['3'] + argv[7:])\n"
+        "from repro_torch.launch.calibrate_invariant import main as cal_main\n"
+        "cal_main(['--batches', '1,2', '--device', 'cpu'])\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core.devices import h100_cluster\n"
+        "from repro_torch.core.modelgraph import transformer_graph\n"
+        "from repro_torch.core.placement import plan\n"
+        "plan(transformer_graph(get_config('llama3.2-1b').smoke(), seq_len=16, granularity='block'),"
+        " h100_cluster(2), method='placeto', placeto_iters=2, placeto_device='cpu')\n"
         # the serving path runs too: lazy imports inside it count
         "from repro_torch.launch.serve import main\n"
         "main(['--arch', 'llama3.2-1b', '--smoke', '--device', 'cpu', '--requests', '2',"

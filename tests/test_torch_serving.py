@@ -64,12 +64,6 @@ def test_plan_matches_reference_on_gpu_presets(preset, method):
     assert got.objective == pytest.approx(ref.objective, rel=1e-9)
 
 
-def test_placeto_is_not_ported():
-    tg = t_transformer_graph(t_get_config("llama3.2-1b").smoke(), seq_len=64, granularity="block")
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_plan(tg, h100_cluster(2), TPlanConfig(method="placeto"))
-
-
 def test_h100_cluster_preset():
     c = h100_cluster(4, heterogeneous=True)
     assert c.k == 4 and c.name == "h100-x4"
