@@ -71,24 +71,27 @@ Phases (any failure exits non-zero; nothing is caught):
    ``--kv-page-tokens 64``, one dense ``ServingEngine`` serving the 16
    requests three times and a profiler trace of 16 of its steps, one paged
    engine on the shared-prefix requests three times beside a dense one.
-   Every forward must launch the grouped-GEMM kernel 3 × 24 times, and the
+   Every forward must launch the grouped-GEMM kernel 3 times a layer (3 ×
+   24 in the CLI runs; the engines run 12 layers: ``SERVE_LAYERS``), and the
    head-dim-128 flash kernel must have launched. Then qwen3-14b (40
    layers, d_model 5120, per-head q/k norms, GQA 40 / 8 at D 128, ~29.5 GB
    bf16): ``[parity-qwen3]`` as phase 5, ``[serve-qwen3]`` and
-   ``[trace-qwen3]`` as phase 4. gemma-7b (28 layers, d_model 3072, 16
+   ``[trace-qwen3]`` as phase 4 (the CLI at 40 layers, the engine's runs
+   and trace at 20: ``SERVE_LAYERS``). gemma-7b (28 layers, d_model 3072, 16
    heads of 256, GeGLU, tied and scaled embeddings, ~17.1 GB bf16):
    ``[parity-gemma]`` (phase 5, the fp32 engines dense and paged),
    ``[serve-gemma]``, ``[trace-gemma]`` and ``[serve-gemma-paged]`` (phases
-   4 and 6). gemma2-27b (46 layers, window 4096 on every other layer,
+   4 and 6; the engines at 14 of 28 layers). gemma2-27b (46 layers, window 4096 on every other layer,
    softcaps, post-norms, ~54.4 GB bf16): ``[parity-gemma2]`` (2 fp32
    layers, one row prefilled to 4300 tokens so the local layer's window
    masks keys in both the chunk tile and the decode kernel; 46 bf16
    layers' prefill logits), ``[serve-gemma2]`` and ``[trace-gemma2]``,
-   dense KV. Every engine run's chunk steps must run a chunk tile. In
+   dense KV (the CLI at 46 layers, the engine at 24). Every engine run's chunk steps must run a chunk tile. In
    every serve and parity run each forward must launch
    ``norms_per_forward(cfg)`` RMSNorms (2 a block, + 2 for q/k norms, + 2
-   for post-norms, 2 a Mamba layer, + 1; qwen3-14b 161, gemma-7b 57,
-   gemma2-27b 185), every one on the rows kernel;
+   for post-norms, 2 a Mamba layer, + 1; qwen3-14b 161 (81 at 20 layers),
+   gemma-7b 57 (29 at 14), gemma2-27b 185 (97 at 24)), every one on the
+   rows kernel;
 8. SSM and hybrid: ``[check-ssd]`` holds the SSD chunked-scan kernel to
    its plain version (fp32 and bf16 within 1e-5 and 4e-2 of max |ref|,
    for y and the final state) at the reference test's shapes, both
@@ -212,7 +215,7 @@ Phases (any failure exits non-zero; nothing is caught):
 13. training and the planner tools (no kernel: the trainer refuses
    ``attention_impl="pallas"``, since the kernels are forward-only).
    ``[train]``: ``python -m repro_torch.launch.train --arch llama3.2-1b
-   --steps 20 --global-batch 8 --seq-len 128 --checkpoint-every 10`` at
+   --steps 20 --global-batch 8 --seq-len 128 --checkpoint-every 20`` at
    full width (bf16 params, fp32 moments, remat) into a temp directory,
    then again with ``--steps 30`` (a preemption: 10 steps resumed from
    step 20); every loss finite, ``steps_run`` 20 then 10, the latest
@@ -229,6 +232,29 @@ Phases (any failure exits non-zero; nothing is caught):
    ``h100_cluster(2)``, the policy on the card, beside ``moirai``'s
    objective.  ``[calibrate]``: the calibration CLI on the card, its byte
    counts equal to the CPU's, the fitted fractions.
+14. the sharded trainer, right after the build (its ranks only load the
+   built library): four ranks share ``cuda:0``, joined by gloo (NCCL
+   refuses two ranks on one GPU), DTensor's functional collectives routed
+   through gloo's eager calls.  ``[mesh-train]``: llama3.2-1b at full
+   width on (2 data x 2 model), bf16, fp32 ZeRO-1 moments, 8 x 128
+   tokens a step from the seeded pipeline, 2 steps, each loss and grad
+   norm within 1e-2 relative of the same steps in one process on the
+   card; 2 layers in fp32 within 1e-5 (loss), 1e-4 (grad norm) and 5e-4
+   (every param); qwen2-moe pure DP x EP at full width, 2 of 24 layers,
+   2 bf16 steps against one process taking the sharded objective, held
+   as llama's bf16 steps; step times, peak memory a rank, each
+   collective's calls, bytes and seconds.  ``[mesh-moe]``: ``moe_ep`` at
+   qwen2-moe's widths, pure DP x EP on four EP ranks and TP inside the
+   experts on (2 x 2), bf16 and fp32, capacity 1.25 and 8.0: 3
+   grouped-GEMM launches a rank a call (the wrapper's counter), each held
+   to ``grouped_gemm_plain`` on its inputs, the layer to its plain route
+   (the same drops) and at 8.0 to ``moe_reference``; then the grouped
+   GEMM at the EP shapes timed alone, beside ``torch._grouped_mm``.
+   ``[mesh-elastic]``: the bf16 llama state after [mesh-train]'s first
+   step, written by those four ranks as step 42 (rank 0 writes), resumed
+   by two on (1 x 2) from the host: the step, every tensor bit-equal to
+   the checkpoint, the next loss within 1e-5 relative of the four ranks'
+   second step.
 
 Each phase's wall time is printed as a ``[phase]`` line.
 
@@ -245,6 +271,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import platform
 import re
 import shutil
@@ -358,6 +385,11 @@ SEAMLESS = "seamless-m4t-large-v2"
 VLM = "qwen2-vl-7b"
 # phase tags: [serve], [serve-moe], ...
 TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3", GEMMA: "-gemma", GEMMA2: "-gemma2"}
+# the engine runs and traces of [serve-moe], [serve-moe-paged],
+# [serve-qwen3], [serve-gemma], [serve-gemma-paged] and [serve-gemma2] cut
+# in depth (their CLI runs keep every layer) so that the script, with the
+# sharded trainer's phases, stays near 950 s of its 1200
+SERVE_LAYERS = {MOE: 12, QWEN3: 20, GEMMA: 14, GEMMA2: 24}
 # the kernels each path must launch: dense or paged KV (decode steps on the
 # split-KV decode kernel), plus the grouped GEMM for an MoE model
 DENSE_PATH = ("flash_attention", "flash_attention_decode", "rmsnorm")
@@ -621,7 +653,8 @@ def phase_card() -> dict:
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
-    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f}s")
+    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f}s: "
+        f"{os.path.basename(_build.load()._name)} (the [mesh-*] ranks load it, never build)")
     for line in _build.build_log().splitlines():
         if line.startswith("==") or "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
@@ -1156,7 +1189,9 @@ ENGINE_REPEATS = 3
 def phase_serve(dev, arch=LLAMA) -> dict:
     tag = f"[serve{TAGS[arch]}]"
     want = path(arch, paged=False)
-    cfg = full_cfg(arch)
+    cli_cfg = full_cfg(arch)
+    # the engine's runs and trace at the depth the script's time allows
+    cfg = full_cfg(arch, n_layers=SERVE_LAYERS.get(arch, cli_cfg.n_layers))
     log(f"{tag} host: {host_line()}")
     log(f"{tag} repro_torch.launch.serve.main(['--arch', '{arch}']) — CLI defaults")
     reset_counts()
@@ -1166,7 +1201,7 @@ def phase_serve(dev, arch=LLAMA) -> dict:
     cli_counts = counts()
     log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
     require(cli_counts, want, "dense serve CLI")
-    require_per_forward(cli_counts, cfg, "dense serve CLI")
+    require_per_forward(cli_counts, cli_cfg, "dense serve CLI")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("the CLI left requests unserved")
     del engine
@@ -1175,7 +1210,8 @@ def phase_serve(dev, arch=LLAMA) -> dict:
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
     eng = make_engine(cfg, params, dev, slots=8, max_len=2048)
     pl = eng.placement_result
-    log(f"{tag} engine: placement method={pl.method} devices={sorted(set(pl.placement.values()))} "
+    log(f"{tag} engine: {cfg.n_layers} of {cli_cfg.n_layers} layers, "
+        f"placement method={pl.method} devices={sorted(set(pl.placement.values()))} "
         f"stages={len(eng.executor.stages)} (layers {[s.layer_ids for s in eng.executor.stages]}); "
         f"card memory allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
     # the same 16 requests served ENGINE_REPEATS times by one engine: the
@@ -1487,7 +1523,8 @@ PAGED_REPEATS = 3
 def phase_serve_paged(dev, arch=LLAMA) -> dict:
     tag = f"[serve{TAGS[arch]}-paged]"
     want = path(arch, paged=True)
-    cfg = full_cfg(arch)
+    cli_cfg = full_cfg(arch)
+    cfg = full_cfg(arch, n_layers=SERVE_LAYERS.get(arch, cli_cfg.n_layers))
     log(f"{tag} repro_torch.launch.serve.main(['--arch', '{arch}', '--kv-page-tokens', '64'])")
     reset_counts()
     t0 = time.perf_counter()
@@ -1496,7 +1533,7 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
     cli_counts = counts()
     log(f"{tag} cli: {time.perf_counter() - t0:.1f}s incl. init, launches {cli_counts}")
     require(cli_counts, want, "paged serve CLI")
-    require_per_forward(cli_counts, cfg, "paged serve CLI")
+    require_per_forward(cli_counts, cli_cfg, "paged serve CLI")
     if cli_counts["flash_attention"] or cli_counts["flash_attention_decode"]:
         raise AssertionError("the paged CLI run went through the dense flash kernel")
     if not all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs):
@@ -1508,6 +1545,7 @@ def phase_serve_paged(dev, arch=LLAMA) -> dict:
     mk = lambda rep: shared_prefix_requests(cfg, n=16, prefix=512, suffix=(100, 600),  # noqa: E731
                                             max_new=32, rid0=100 * rep)
     eng = make_paged_engine(cfg, params, dev, slots=8, max_len=2048, page_tokens=64)
+    log(f"{tag} engine: {cfg.n_layers} of {cli_cfg.n_layers} layers")
     tok_s, paged_tokens = [], None
     prev = {"reused_pages": 0, "cow_copies": 0, "evicted": 0, "alloc": 0}
     skipped0 = 0
@@ -3377,8 +3415,10 @@ def phase_serve_vlm(dev) -> dict:
 
 
 # ------------------------------------------------ training and planner tools
+# one checkpoint a run (steps 20 and 30, for the script's time): the
+# resume from step 20 is what the phase holds
 TRAIN_ARGS = ["--arch", LLAMA, "--global-batch", "8", "--seq-len", "128",
-              "--checkpoint-every", "10"]
+              "--checkpoint-every", "20"]
 PARITY_TRAIN_LR = 1e-3
 # [parity-train]'s bound on an updated param, card vs CPU: half a step's
 # largest move.  Adam's first step divides g by |g| + 1e-8, so where a
@@ -3596,6 +3636,599 @@ def phase_calibrate(dev) -> dict:
         + ", ".join(f"{c} {fr[c]:.4f}" for c in cal.OPS)
         + f"; shipped conv {payload['shipped_defaults']['conv']}")
     return {"fractions": fr, "bytes_by_batch": payload["bytes_by_batch"]}
+
+
+# ------------------------------------------------------ the sharded trainer
+# [mesh-train], [mesh-moe] and [mesh-elastic]: ranks that share the one card
+# (NCCL refuses two ranks on one GPU), joined by gloo; gloo takes CUDA
+# tensors in its eager collectives, and DTensor's functional ones are routed
+# through those (parallel/collectives.py)
+MESH_WORLD = 4
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 8, 128, 2
+# of qwen2-moe's 24: four ranks share 80 GB, and the functional update
+# holds the old and the new params and ZeRO-1 moments at once (4 layers
+# ran out of memory on the card: ~20 GB a rank)
+MESH_MOE_LAYERS = 2
+MESH_LR = 1e-3
+MESH_TIMEOUT = 420.0             # seconds one group of ranks may take
+MESH_BF16_LOSS_TOL = 1e-2        # relative, sharded vs one process, bf16
+MESH_FP32_LOSS_TOL = 1e-5        # relative, fp32
+MESH_FP32_PARAM_TOL = 5e-4       # absolute: [parity-train]'s bound
+MESH_BF16_NORM_TOL = 1e-2        # relative, the grad norm, bf16
+MESH_FP32_NORM_TOL = 1e-4        # relative, fp32
+ELASTIC_STEP = 42                # [mesh-elastic]'s checkpoint (the reference test's step)
+ELASTIC_LOSS_TOL = 1e-5          # relative, the resumed step vs the 4-rank continuation
+
+
+def _mesh_rank(rank, world, tmp, fn_name, args, spawned):
+    """One rank: joins the group (gloo, on the shared card), runs
+    ``fn_name(rank, world, dev, *args)`` and pickles what it returns.
+    ``spawned``: the parent's clock when it started the ranks."""
+    from repro_torch.launch.mesh import init_ranks
+
+    # four processes share the card: return freed segments to it
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_ranks(rank, world, f"file://{tmp}/store", backend="gloo", device_type="cuda")
+    if rank == 0:
+        log(f"[mesh] {fn_name}: {world} ranks up {time.time() - spawned:.1f}s after the spawn")
+    out = globals()[fn_name](rank, world, dev, *args)
+    with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world, fn, *args, timeout=MESH_TIMEOUT) -> list:
+    """``fn(rank, world, dev, *args)`` in ``world`` fresh processes that
+    share the card over gloo (a file store); what each returned, in rank
+    order.  They start after the kernel build and only load its library.
+    A rank that fails, or a group that outlives ``timeout``, fails the
+    phase; every process is stopped before this returns."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    spawn = torch.multiprocessing.get_context("spawn")
+    procs = [spawn.Process(target=_mesh_rank, args=(r, world, tmp, fn.__name__, args, time.time()))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+        if bad:
+            raise AssertionError(f"{fn.__name__}: ranks failed or ran past {timeout}s "
+                                 f"(exit codes, None = still running): {bad}")
+        outs = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+        return outs
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_cfg(arch, **kw):
+    """The trainer's config at full width (``chunked`` attention)."""
+    return dataclasses.replace(get_config(arch), scan_layers=False, remat=False, **kw)
+
+
+def mesh_batch(cfg, step: int) -> dict:
+    """Batch ``step`` of the seeded pipeline: 8 x 128 tokens."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_SEQ,
+                                        global_batch=MESH_BATCH, seed=SEED))
+    return corpus.batch(step)
+
+
+def _mesh_params(cfg, mesh, ctx, dev):
+    """The seeded init (the same on every rank), distributed by the rules."""
+    from repro_torch.convert import init_params
+    from repro_torch.parallel.sharding import param_shardings
+
+    full = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    params = param_shardings(cfg, mesh, full, pure_dp=ctx.tp_axis is None)
+    del full
+    free_card()
+    return params
+
+
+def _mesh_steps(cfg, mesh, dev, steps, *, ref=None, save=None) -> dict:
+    """``steps`` sharded steps from the seeded init on the pipeline's
+    batches: losses, grad norms, step seconds, this rank's peak memory and
+    the last step's collectives; with ``ref`` (a saved single-process step,
+    rank 0 reads it) the largest difference of the new params from it;
+    with ``save`` (a directory) the state after the first step written
+    there as step ``ELASTIC_STEP`` (the next step is its continuation),
+    and the save's seconds.  The peak leaves out the save's gathers."""
+    from repro_torch.launch.dryrun import make_context
+    from repro_torch.parallel.collectives import log_collectives
+    from repro_torch.parallel.context import parallel_context
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    ctx = make_context(mesh, cfg, MESH_BATCH)
+    p = _mesh_params(cfg, mesh, ctx, dev)
+    o = init_opt_state(p, mesh=mesh)
+    step = make_train_step(build_model(cfg), AdamWConfig(lr=MESH_LR, warmup_steps=1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, secs, peak, save_s = [], [], [], 0, None
+    for i in range(steps):
+        if i == 1 and save is not None:
+            peak = torch.cuda.max_memory_allocated(dev)
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            save_checkpoint(save, ELASTIC_STEP, {"params": p, "opt": o})
+            save_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+        batch = mesh_batch(cfg, i)
+        torch.cuda.synchronize(dev)
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        with parallel_context(ctx), log_collectives() as coll:    # the last step's is kept
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    out = {"layout": (ctx.dp_axes, ctx.tp_axis), "losses": losses, "grad_norms": norms,
+           "step_s": secs, "peak_bytes": max(peak, torch.cuda.max_memory_allocated(dev)),
+           "save_s": save_s,
+           "collectives": {k: {"calls": int(v[0]), "bytes": int(v[1]), "s": float(v[2])}
+                           for k, v in coll.items()},
+           "moment_layout": str(o["m"]["layers"][0]["attn"]["wq"].placements)}
+    if ref is not None:
+        want = torch.load(ref, map_location=dev) if torch.distributed.get_rank() == 0 else None
+        diff = 0.0
+        for path, leaf in leaves_with_paths(p):
+            whole = leaf.full_tensor()
+            if want is not None:
+                diff = max(diff, float((whole.float() - want["/".join(map(str, path))].float())
+                                       .abs().max()))
+        out["max_param_diff"] = diff
+    del p, o
+    free_card()
+    return out
+
+
+def mesh_rank(rank, world, dev, fp32_ref, ckpt, ep_inputs):
+    """One rank of the sharded trainer's phases: [mesh-train] on the
+    (2 data x 2 model) mesh, whose bf16 llama run writes [mesh-elastic]'s
+    checkpoint into ``ckpt``, then [mesh-moe]'s cases (rank 0 saves the
+    timed case's grouped-GEMM inputs to ``ep_inputs``); one group of four
+    ranks for the three, since each group costs its start-up."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    from repro_torch.parallel.collectives import functional_collectives_routed
+
+    mesh = make_debug_mesh(world, device_type=dev.type)
+    out = {"mesh": dict(mesh.shape), "routed": functional_collectives_routed()}
+    for key, cfg, steps, ref, save in (
+        ("llama_bf16", mesh_cfg(LLAMA), MESH_STEPS, None, ckpt),
+        ("llama_fp32", mesh_cfg(LLAMA, n_layers=2, dtype="float32"), 1, fp32_ref, None),
+        ("moe_bf16", mesh_cfg(MOE, n_layers=MESH_MOE_LAYERS), MESH_STEPS, None, None),
+    ):
+        t0 = time.perf_counter()
+        out[key] = _mesh_steps(cfg, mesh, dev, steps, ref=ref, save=save)
+        if rank == 0:
+            log(f"[mesh-train] rank 0: {key} done in {time.perf_counter() - t0:.1f}s, step s "
+                + " ".join(f"{x:.3f}" for x in out[key]["step_s"]))
+    t0 = time.perf_counter()
+    out["moe"] = mesh_moe_cases(rank, dev, ep_inputs)
+    if rank == 0:
+        log(f"[mesh-moe] rank 0: {len(out['moe']['cases'])} cases in "
+            f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _single_process(cfg, dev, steps, *, aux_shards=1, save=None) -> dict:
+    """The same steps in this process on the card: losses and grad norms
+    (``aux_shards``: the sharded MoE step's objective, the mean of each DP
+    rank's load-balancing loss); ``save``: the new params to that file."""
+    from _torch_mesh_ranks import single_step
+    from repro_torch.convert import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    opt_cfg = AdamWConfig(lr=MESH_LR, warmup_steps=1)
+    model = build_model(cfg)
+    p = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    losses, norms = [], []
+    if aux_shards > 1:
+        o = None
+        for i in range(steps):
+            p, o, m = single_step(model, p, mesh_batch(cfg, i), opt_cfg, aux_shards=aux_shards,
+                                  opt=o)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    else:
+        step, o = make_train_step(model, opt_cfg), init_opt_state(p)
+        for i in range(steps):
+            p, o, m = step(p, o, mesh_batch(cfg, i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    if save is not None:
+        torch.save({"/".join(map(str, path)): t.cpu() for path, t in leaves_with_paths(p)}, save)
+    del p, o
+    free_card()
+    return {"losses": losses, "grad_norms": norms}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _collectives_line(c: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e6:.1f} MB {v['s']:.3f}s"
+                     for k, v in sorted(c.items()))
+
+
+def phase_mesh_train(dev, ckpt, ep_inputs) -> dict:
+    """[mesh-train]: four ranks on the card over gloo, a (2 data x 2 model)
+    mesh.  llama3.2-1b at full width (16 layers, vocab 128256), bf16
+    params, fp32 ZeRO-1 moments, 8 x 128 tokens a step from the seeded
+    pipeline, 2 steps: every loss finite, and each step's loss and grad
+    norm within 1e-2 relative of the same steps in one process on the
+    card; the state after the first step is [mesh-elastic]'s checkpoint
+    (written into ``ckpt``).  2 layers in fp32: loss within 1e-5 relative,
+    grad norm within 1e-4 and every param within 5e-4 of one process.
+    qwen2-moe pure DP x EP (``make_context``: no TP; experts over
+    ``data``, the all-to-all MoE) at full width and 2 of 24 layers, 2 bf16
+    steps, against one process taking the sharded objective: losses and
+    grad norms as llama's (a gradient summed twice doubles the norm; the
+    second loss follows the ZeRO-1 update).  Step times, peak memory per
+    rank and each collective's bytes and time.  The same ranks then run
+    [mesh-moe]'s cases (returned under ``moe``; the timed case's inputs
+    saved to ``ep_inputs``)."""
+    free_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_ref_")
+    try:
+        fp32_ref = os.path.join(tmp, "llama_fp32_step.pt")
+        t0 = time.perf_counter()
+        refs = {
+            "llama_bf16": _single_process(mesh_cfg(LLAMA), dev, MESH_STEPS),
+            "llama_fp32": _single_process(mesh_cfg(LLAMA, n_layers=2, dtype="float32"), dev, 1,
+                                          save=fp32_ref),
+            "moe_bf16": _single_process(mesh_cfg(MOE, n_layers=MESH_MOE_LAYERS), dev, MESH_STEPS,
+                                        aux_shards=MESH_WORLD),
+        }
+        t_ref = time.perf_counter() - t0
+        log(f"[mesh-train] single-process references {t_ref:.1f}s; this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+            f"({torch.cuda.memory_reserved(dev) / 1e9:.2f} reserved) as the ranks start")
+        t0 = time.perf_counter()
+        outs = spawn_ranks(MESH_WORLD, mesh_rank, fp32_ref, ckpt, ep_inputs)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[mesh-train] {MESH_WORLD} ranks on cuda:0 over gloo, mesh {outs[0]['mesh']}; "
+        f"single-process references {t_ref:.1f}s, ranks {t_ranks:.1f}s (start-up included); "
+        "gloo's eager calls take CUDA tensors, DTensor's functional all-reduce, all-gather, "
+        "reduce-scatter and all-to-all run through them: "
+        f"{all(o['routed'] for o in outs)}")
+    if not all(o["routed"] for o in outs):
+        raise AssertionError("[mesh-train] DTensor's functional collectives were not routed")
+    result = {"ranks_s": t_ranks, "references_s": t_ref, "moe": [o["moe"] for o in outs]}
+    for key, what in (("llama_bf16", f"{LLAMA} bf16 16 layers"),
+                      ("llama_fp32", f"{LLAMA} fp32 2 layers"),
+                      ("moe_bf16", f"{MOE} bf16 {MESH_MOE_LAYERS} layers")):
+        r0, ref = outs[0][key], refs[key]
+        errs = [_rel(a, b) for a, b in zip(r0["losses"], ref["losses"])]
+        norm_errs = [_rel(a, b) for a, b in zip(r0["grad_norms"], ref["grad_norms"])]
+        tol = MESH_FP32_LOSS_TOL if "fp32" in key else MESH_BF16_LOSS_TOL
+        norm_tol = MESH_FP32_NORM_TOL if "fp32" in key else MESH_BF16_NORM_TOL
+        med = float(np.median(r0["step_s"][1:] or r0["step_s"]))
+        peaks = [o[key]["peak_bytes"] / 1e9 for o in outs]
+        log(f"[mesh-train] {what}: layout dp {r0['layout'][0]} tp {r0['layout'][1]}, moments "
+            f"{r0['moment_layout']}; losses {' '.join(f'{x:.5f}' for x in r0['losses'])} vs one "
+            f"process {' '.join(f'{x:.5f}' for x in ref['losses'])} (rel {max(errs):.2e}, bound "
+            f"{tol:.0e}); grad norms {' '.join(f'{x:.5f}' for x in r0['grad_norms'])} vs "
+            f"{' '.join(f'{x:.5f}' for x in ref['grad_norms'])} (rel {max(norm_errs):.2e}, bound "
+            f"{norm_tol:.0e}); "
+            f"step s {' '.join(f'{x:.3f}' for x in r0['step_s'])} (median {med:.3f}); "
+            f"peak GB per rank {' '.join(f'{x:.2f}' for x in peaks)}")
+        log(f"[mesh-train] {what}: collectives of one step, rank 0: "
+            f"{_collectives_line(r0['collectives'])}")
+        if (len(r0["losses"]) != len(ref["losses"]) or not all(map(math.isfinite, r0["losses"]))
+                or not max(errs) <= tol):
+            raise AssertionError(f"[mesh-train] {what}: sharded losses {r0['losses']} vs "
+                                 f"{ref['losses']}")
+        if not max(norm_errs) <= norm_tol:
+            raise AssertionError(f"[mesh-train] {what}: sharded grad norms {r0['grad_norms']} vs "
+                                 f"{ref['grad_norms']}")
+        if key == "llama_fp32":
+            log(f"[mesh-train] {what}: max param diff {r0['max_param_diff']:.3e} "
+                f"(bound {MESH_FP32_PARAM_TOL:.0e})")
+            if not r0["max_param_diff"] <= MESH_FP32_PARAM_TOL:
+                raise AssertionError(f"[mesh-train] {what}: params differ from one process")
+        result[key] = {"losses": r0["losses"], "single_losses": ref["losses"],
+                       "loss_rel_err": max(errs), "grad_norm_rel_err": max(norm_errs),
+                       "step_s": r0["step_s"], "step_s_median": med, "save_s": r0["save_s"],
+                       "peak_gb": peaks, "collectives": r0["collectives"],
+                       "layout": r0["layout"]}
+    if outs[0]["moe_bf16"]["layout"][1] is not None:
+        raise AssertionError("[mesh-train] qwen2-moe did not take the pure DP x EP layout")
+    return result
+
+
+def moe_layer_params(cfg, dev, dtype, seed=SEED) -> dict:
+    """One MoE layer's router and experts at the init's distributions,
+    drawn on the card from a seed (the same on every rank)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    e, d, f = cfg.n_experts_padded or cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+
+    def normal(shape, std, dt):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+
+    return {"router": normal((d, e), d ** -0.5, torch.float32),
+            "w_gate": normal((e, d, f), d ** -0.5, dtype),
+            "w_up": normal((e, d, f), d ** -0.5, dtype),
+            "w_down": normal((e, f, d), f ** -0.5, dtype)}
+
+
+def mesh_moe_cases(rank, dev, ep_inputs):
+    """[mesh-moe] on one rank: ``moe_ep`` forward at qwen2-moe's widths.
+    Rank 0 saves the grouped GEMM's gate and down inputs of the pure DP x
+    EP bf16 call at qwen2-moe's capacity factor to ``ep_inputs``, to be
+    timed once no rank is left (:func:`time_gg_ep`)."""
+    from repro_torch.launch.mesh import PartitionSpec as P, make_mesh
+    from repro_torch.models.moe import moe_reference
+    from repro_torch.parallel.context import ParallelContext, default_rules
+    from repro_torch.parallel.moe_parallel import moe_ep
+    from repro_torch.parallel.sharding import distribute, param_pspec_tree
+
+    base = get_config(MOE)
+    cases = []
+    layouts = (("pure DP x EP, 4 EP ranks", (4, 1), True), ("TP in experts, 2 x 2", (2, 2), False))
+    meshes = {shape: make_mesh(shape, ("data", "model"), dev.type) for _, shape, _ in layouts}
+    for what, shape, pure in layouts:
+        mesh = meshes[shape]
+        ctx = ParallelContext(mesh, default_rules(False), ep_axes=("data",),
+                              dp_axes=("data", "model") if pure else ("data",),
+                              tp_axis=None if pure else "model")
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(base, dtype=str(dtype).split(".")[1])
+            p = moe_layer_params(cfg, dev, dtype)
+            x = torch.randn(MESH_BATCH, MESH_SEQ, cfg.d_model, dtype=torch.float32, device=dev,
+                            generator=torch.Generator(dev).manual_seed(SEED + 1)).to(dtype)
+            specs = param_pspec_tree(cfg, mesh, {"moe": p}, pure_dp=pure)["moe"]
+            pd = {k: distribute(v, mesh, specs[k]) for k, v in p.items()}
+            xd = distribute(x, mesh, P(ctx.dp_axes, None, None))
+            for cf in (cfg.capacity_factor, 8.0):
+                c = dataclasses.replace(cfg, capacity_factor=cf)
+                calls, kernel = [], gg.grouped_gemm
+
+                def recorded(a, w, sizes):
+                    out = kernel(a, w, sizes)
+                    calls.append((a, w, sizes, out))
+                    return out
+
+                stats_k, stats_p = {}, {}
+                with torch.no_grad():
+                    gg.grouped_gemm = recorded
+                    try:
+                        reset_counts()
+                        yk, aux_k = moe_ep(pd, xd, c, ctx, kernel=True, stats=stats_k)
+                        torch.cuda.synchronize(dev)
+                        launches = counts()["grouped_gemm"]
+                    finally:
+                        gg.grouped_gemm = kernel
+                    # B4 against its plain version on this rank's inputs
+                    gg_err = max(within(out, gg.grouped_gemm_plain(a, w, sizes))
+                                 for a, w, sizes, out in calls)
+                    yp, aux_p = moe_ep(pd, xd, c, ctx, kernel=False, stats=stats_p)
+                    route_err = within(yk.to_local(), yp.to_local())
+                    whole = yk.full_tensor()
+                    oracle_err = None
+                    if cf >= 8.0 and rank == 0:
+                        oracle_err = within(whole, moe_reference(p, x, c))
+                case = {"what": what, "dtype": str(dtype), "capacity_factor": cf,
+                        "launches": launches, "gg_max_abs_err": gg_err,
+                        "route_max_abs_err": route_err, "oracle_max_abs_err": oracle_err,
+                        "dropped_kernel": stats_k["dropped"], "dropped_plain": stats_p["dropped"],
+                        "rows": [int(a.shape[0]) for a, _, _, _ in calls],
+                        "aux": float(aux_k.full_tensor()), "aux_plain": float(aux_p.full_tensor())}
+                if pure and dtype == torch.bfloat16 and cf < 8.0:
+                    case["timed"] = True
+                    if rank == 0:
+                        torch.save({proj: {"x": a.cpu(), "w": w.cpu(), "group_sizes": sizes.cpu()}
+                                    for proj, (a, w, sizes, _) in (("gate_up", calls[0]),
+                                                                   ("down", calls[2]))},
+                                   ep_inputs)
+                torch.distributed.barrier()
+                cases.append(case)
+            del p, x, pd, xd
+            free_card()
+    return {"cases": cases, "library": _build.load()._name}
+
+
+def phase_mesh_moe(outs, dev, ep_inputs) -> dict:
+    """[mesh-moe]: ``moe_ep``'s forward at qwen2-moe's widths (d 2048,
+    moe_d_ff 1408, 60 routed experts padded to 64, top-4, 8 x 128 tokens)
+    on four ranks sharing the card: pure DP x EP on four EP ranks (4 x 1),
+    and (2 x 2) with TP inside the experts; bf16 and fp32; at qwen2-moe's
+    capacity factor 1.25 and at 8.0.  Each call launches the grouped GEMM
+    3 times a rank (counted by its wrapper); each launch is held to
+    ``grouped_gemm_plain`` on the same inputs within ``[check]``'s
+    tolerances, the layer's output to the plain route's, and at 8.0 (no
+    drops) to the dense oracle ``moe_reference``; both routes drop the
+    same slots.  ``outs``: each rank's cases, run by [mesh-train]'s
+    ranks.  Then B4 timed at the EP shapes in this process, no rank left
+    (``ep_inputs``: rank 0's saved inputs)."""
+    log(f"[mesh-moe] {MESH_WORLD} ranks on cuda:0 over gloo; the ranks loaded "
+        f"{os.path.basename(outs[0]['library'])} (built by [build])")
+    result = {"cases": []}
+    for i, case in enumerate(outs[0]["cases"]):
+        per_rank = [o["cases"][i] for o in outs]
+        launches = [c["launches"] for c in per_rank]
+        drops = [(c["dropped_kernel"], c["dropped_plain"]) for c in per_rank]
+        gg_err = max(c["gg_max_abs_err"] for c in per_rank)
+        route_err = max(c["route_max_abs_err"] for c in per_rank)
+        log(f"[mesh-moe] {case['what']} {case['dtype']} cf {case['capacity_factor']}: grouped GEMM "
+            f"launches per rank {launches}, rows per rank {[c['rows'][0] for c in per_rank]}, "
+            f"kernel vs plain max abs err {gg_err:.3e}, layer kernel route vs plain "
+            f"{route_err:.3e}, vs moe_reference {case['oracle_max_abs_err']}, dropped slots "
+            f"(kernel, plain) {drops}, aux {case['aux']:.6f} / {case['aux_plain']:.6f}")
+        if any(n != 3 for n in launches):
+            raise AssertionError(f"[mesh-moe] {case['what']}: grouped GEMM launches {launches}, "
+                                 "want 3 a rank")
+        if any(a != b for a, b in drops):
+            raise AssertionError(f"[mesh-moe] {case['what']}: the routes dropped {drops}")
+        if case["capacity_factor"] >= 8.0 and any(a for a, _ in drops):
+            raise AssertionError(f"[mesh-moe] {case['what']}: drops at capacity factor 8")
+        result["cases"].append({**case, "launches_per_rank": launches, "gg_max_abs_err": gg_err,
+                                "route_max_abs_err": route_err, "dropped": drops})
+    result["ep"] = time_gg_ep(dev, ep_inputs)
+    return result
+
+
+def time_gg_ep(dev, path) -> dict:
+    """B4 at ``moe_ep``'s EP shapes (rank 0's gate and down inputs of the
+    pure DP x EP bf16 call at capacity 1.25), timed in this process with
+    no rank alive: the kernel, its plain version and ``torch._grouped_mm``,
+    the L2 flushed before each call as in the timing phase, beside the
+    bound of these inputs."""
+    inputs = torch.load(path)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    out = {}
+    for proj, host in inputs.items():
+        inp = {k: v.to(dev) for k, v in host.items()}
+        byts, flops = gg_work(inp)
+        b_ms, b_by = bound(byts, flops, torch.bfloat16)
+        label, lib = gg_library(inp)
+        ref = run_gg(gg.grouped_gemm_plain, inp)
+        lib_out = lib()
+        lib_out = torch.cat(lib_out) if isinstance(lib_out, list) else lib_out
+        r = out[proj] = dict(
+            shape=[list(inp["x"].shape), list(inp["w"].shape)],
+            max_abs_err=within(run_gg(gg.grouped_gemm, inp), ref),
+            ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm, inp), flush=flush),
+            plain_ms=time_ms(dev, lambda: run_gg(gg.grouped_gemm_plain, inp), iters=10,
+                             flush=flush),
+            library_ms=time_ms(dev, lib, iters=20, flush=flush), library=label,
+            library_max_abs_diff=(lib_out.float() - ref.float()).abs().max().item(),
+            bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops,
+        )
+        log(f"[mesh-moe] grouped GEMM {proj} at the EP shape x {r['shape'][0]} w {r['shape'][1]} "
+            f"({int((inp['group_sizes'] > 0).sum())} experts with rows), this process alone: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {label} "
+            f"{r['library_ms']:.4f} ms (max abs diff to plain {r['library_max_abs_diff']:.3e}), "
+            f"bound {b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+            f"kernel/bound {r['ms'] / b_ms:.2f}x")
+        del inp, ref, lib_out
+    del flush
+    return out
+
+
+def mesh_moe_entry(mesh_moe) -> dict:
+    """The grouped GEMM's ``kernels`` entry for ``moe_ep``: launches per
+    rank per call, the largest error against its plain version over every
+    case, and the times at the EP shapes (:func:`time_gg_ep`)."""
+    timed_case = next(c for c in mesh_moe["cases"] if c.get("timed"))
+    return {
+        "launches_per_rank_per_call": sorted({n for c in mesh_moe["cases"]
+                                              for n in c["launches_per_rank"]}),
+        "calls": len(mesh_moe["cases"]),
+        "max_abs_err": {dt: max(c["gg_max_abs_err"] for c in mesh_moe["cases"]
+                                if c["dtype"] == dt)
+                        for dt in ("torch.bfloat16", "torch.float32")},
+        "layout": timed_case["what"],
+        **{proj: {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library")}
+           for proj, r in mesh_moe["ep"].items()},
+    }
+
+
+def mesh_elastic_resume_rank(rank, world, dev, ckpt):
+    """[mesh-elastic], two ranks: ``elastic_resume`` of [mesh-train]'s
+    full-width bf16 llama3.2-1b state on (1 x 2) (restored to the host,
+    each rank's slices moved to the card); every restored tensor gathered
+    whole against the checkpoint's array (the ranks share the leaves);
+    then the next step."""
+    from repro_torch.launch.dryrun import make_context
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.context import parallel_context
+    from repro_torch.train.elastic import elastic_resume
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = mesh_cfg(LLAMA)
+    mesh = make_debug_mesh(world, device_type=dev.type)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    at, p, o = elastic_resume(cfg, mesh, ckpt, global_batch=MESH_BATCH)
+    torch.cuda.synchronize(dev)
+    resume_s = time.perf_counter() - t0
+    resume_peak = torch.cuda.max_memory_allocated(dev)
+    # each rank holds every other leaf, gathered whole, to its stored array
+    # (read one at a time), bit for bit on the card
+    stored = np.load(os.path.join(ckpt, f"step_{at:08d}", "arrays.npz"))
+    signed = {2: np.int16, 4: np.int32, 8: np.int64}
+    unequal, checked = [], 0
+    for i, (path, leaf) in enumerate(leaves_with_paths({"params": p, "opt": o})):
+        whole = (leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf).detach()
+        if i % world != rank:
+            continue
+        key = "/".join(map(str, path))
+        want = stored[key]
+        want = torch.from_numpy(want.view(signed[want.itemsize])).to(dev)
+        got = whole.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[whole.element_size()])
+        checked += 1
+        if not torch.equal(got, want):
+            unequal.append(key)
+        del whole, got, want
+    step = make_train_step(build_model(cfg), AdamWConfig(lr=MESH_LR, warmup_steps=1))
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    with parallel_context(make_context(mesh, cfg, MESH_BATCH)):
+        _, _, m = step(p, o, mesh_batch(cfg, 1))
+        loss = float(m["loss"])
+    return {"mesh": dict(mesh.shape), "step": at, "unequal": unequal, "checked": checked,
+            "loss": loss, "resume_s": resume_s, "resume_peak_gb": resume_peak / 1e9,
+            "step_s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "wq": str(p["layers"][0]["attn"]["wq"].placements)}
+
+
+def phase_mesh_elastic(four, ckpt) -> dict:
+    """[mesh-elastic]: [mesh-train]'s full-width bf16 llama3.2-1b state
+    after its first step, saved by the four ranks on (2 x 2) as step 42
+    (``four``: that run's results; the checkpoint in ``ckpt``), resumed by
+    two ranks on (1 x 2): the step matches, every restored tensor gathered
+    whole is bit-equal to the checkpoint's, and the next step's loss is
+    within 1e-5 relative of the four ranks' second step, the
+    continuation (the same bf16 params and batch on another layout)."""
+    t0 = time.perf_counter()
+    outs = spawn_ranks(2, mesh_elastic_resume_rank, ckpt)
+    wall = time.perf_counter() - t0
+    two = dict(outs[0], unequal=[k for o in outs for k in o["unequal"]],
+               leaves=sum(o["checked"] for o in outs))
+    cont = four["losses"][1]
+    err = _rel(two["loss"], cont)
+    log(f"[mesh-elastic] {LLAMA} bf16 16 layers saved at step {ELASTIC_STEP} on (2 x 2) "
+        f"({four['save_s']:.2f}s, rank 0 gathering and writing), resumed on {two['mesh']} at "
+        f"step {two['step']} ({two['resume_s']:.2f}s, peak {two['resume_peak_gb']:.2f} GB a rank; "
+        f"wq {two['wq']}); {two['leaves'] - len(two['unequal'])} of {two['leaves']} tensors "
+        f"bit-equal; next loss {two['loss']:.7f} vs the 4-rank continuation {cont:.7f} (rel "
+        f"{err:.2e}, bound {ELASTIC_LOSS_TOL:.0e}), step {two['step_s']:.2f}s, peak "
+        f"{two['peak_gb']:.2f} GB a rank; {wall:.1f}s")
+    if (two["step"] != ELASTIC_STEP or two["unequal"] or not math.isfinite(two["loss"])
+            or not err <= ELASTIC_LOSS_TOL):
+        raise AssertionError(f"[mesh-elastic] resume failed: {two} vs {cont}")
+    return {"loss_rel_err": err, "wall_s": wall, "resume_s": two["resume_s"],
+            "save_s": four["save_s"]}
 
 
 def ssd_work(args, st, chunk) -> tuple:
@@ -4113,6 +4746,16 @@ def main() -> int:
     timed(phase_placeto, dev)
     timed(phase_calibrate, dev)
     join_build()
+    # the sharded trainer's ranks start now: the kernels are built
+    free_card()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_work_")
+    ckpt, ep_inputs = os.path.join(work, "ckpt"), os.path.join(work, "gg_ep.pt")
+    try:
+        mesh_train = timed(phase_mesh_train, dev, ckpt, ep_inputs)
+        mesh_moe = timed(phase_mesh_moe, mesh_train["moe"], dev, ep_inputs)
+        timed(phase_mesh_elastic, mesh_train["llama_bf16"], ckpt)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     errs = timed(phase_check, dev)
     errs.update(timed(phase_check_gg_split, dev))
     errs.update(timed(phase_check_decode, dev))
@@ -4246,6 +4889,8 @@ def main() -> int:
                        {"library": t["library"]}),
                 }
         if name == "grouped_gemm":
+            # this slice's path: moe_ep's local experts on each of four ranks
+            row["moe_ep"] = mesh_moe_entry(mesh_moe)
             # the four main-path shapes: gate/up and down at decode and chunk
             row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name],
                        shapes={c: {key: times[(name, c)][key] for key in (

@@ -25,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.context import is_dtensor, shard_hint
+from repro_torch.parallel.vocab import embed_lookup
 from .layers import Params, mlp, multihead_attention, rmsnorm, uses_kernels
 from .transformer import check_trainable, remat as remat_fn, torch_dtype
 
@@ -47,7 +49,8 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *, remat: boo
     """frames ``[B, S_enc, D]`` (the stub frontend's output) → memory
     ``[B, S_enc, D]``, on the parameters' device in ``cfg.dtype``.
     ``remat``: recompute each block in the backward pass (training)."""
-    x = frames.to(device=params["embed"].device, dtype=torch_dtype(cfg))
+    x = shard_hint(frames.to(device=params["embed"].device, dtype=torch_dtype(cfg)),
+                   "batch", None, "embed")
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     block = remat_fn(_enc_block, remat)
@@ -108,7 +111,11 @@ def decode_stack(params, tokens, cfg, memory=None, cross_cache=None, self_cache=
     no cache): recompute each block, cross K/V included, in the backward
     pass."""
     embed = params["embed"]
-    x = embed[tokens.to(device=embed.device, dtype=torch.int64)]
+    if is_dtensor(embed):
+        x = embed_lookup(embed, tokens)
+    else:
+        x = embed[tokens.to(device=embed.device, dtype=torch.int64)]
+    x = shard_hint(x, "batch", None, "embed")
     b, s = tokens.shape
     positions = _positions(b, s, x.device)
     if cache_pos is not None:
@@ -138,7 +145,7 @@ def decode_stack(params, tokens, cfg, memory=None, cross_cache=None, self_cache=
     x = rmsnorm(x, params["ln_final"], kernel=uses_kernels(cfg))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     # the per-layer self caches are views of the stacked tensors, written in place
-    return x @ head, self_cache
+    return shard_hint(x @ head, "batch", None, "vocab"), self_cache
 
 
 # --------------------------------------------------------------------------

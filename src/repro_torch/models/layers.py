@@ -22,6 +22,11 @@ number of valid query rows (the fused mixed prefill/decode batch), and a
 Unlike the reference, the KV cache — dense rows and page pools alike — is
 written **in place**: the returned cache holds the same tensors that were
 passed in.
+
+On a mesh (DTensor activations under a parallel context; the training
+forward, no cache) the projections and the MLP are DTensor products
+steered by the reference's shard hints, and RoPE with the plain core runs
+on each rank's batch rows and heads (``local_map``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import rmsnorm as rms_kernel
+from repro_torch.parallel.context import is_dtensor, like_batch, shard_hint
 
 Params = Dict[str, Any]
 
@@ -233,6 +239,84 @@ def _paged_update(pool_k, pool_v, table, k, v, cache_pos, q_lens) -> None:
 _paged_view = fa_kernel.paged_view
 
 
+def _rope_qk(q, k, positions, cfg: ModelConfig, ragged: bool):
+    """RoPE (M-RoPE when ``cfg.mrope_sections`` is set) on q and k; returns
+    them with ``q_pos``: ``[Sq]`` shared across rows, or ``[B, Sq]`` per row
+    (ragged: positions already carry each row's cache_pos).  M-RoPE masks
+    follow the temporal stream."""
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        return q, k, positions[0] if ragged else positions[0][0]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, positions if ragged else positions[0]
+
+
+def _plain_core(q, k, v, q_pos, k_pos1d, cfg: ModelConfig, *, causal, window, scale):
+    """The ``chunked`` (long keys, several queries) or ``naive`` core on
+    q ``[B, Sq, H, D]`` and k/v ``[B, Sk, G, D]``: ``[B, Sq, H, D]``."""
+    b, sq, h, hd = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, sq, g, h // g, hd)
+    if cfg.attention_impl == "chunked" and k.shape[1] > cfg.attn_chunk and sq > 1:
+        out = _chunked_attention(
+            qg, k, v, q_pos, k_pos1d,
+            causal=causal, window=window, cap=cfg.attn_softcap, scale=scale,
+            chunk=cfg.attn_chunk,
+        )
+    else:
+        out = fa_kernel.masked_attention(
+            qg, k, v, fa_kernel.attn_mask(q_pos, k_pos1d, causal, window),
+            scale=scale, cap=cfg.attn_softcap,
+        ).to(q.dtype)
+    return out.reshape(b, sq, h, hd)
+
+
+def _attention_on_mesh(q, k, v, positions, cfg: ModelConfig, *, cross, causal, window, scale):
+    """Attention of DTensors q ``[B, Sq, H, D]`` and k/v ``[B, Sk, KV, D]``
+    (no cache): RoPE and the plain core run on each rank's local batch rows
+    and heads (``local_map``, PyTorch's ``shard_map``), so the masks, built
+    from ``arange``, never meet a DTensor.  k and v are laid out like q's
+    heads (``kv_heads``), which keeps each rank's query heads beside their
+    KV group; that needs the KV head count to divide over the head axis."""
+    from torch.distributed.tensor.experimental import local_map
+
+    if cfg.n_kv_heads % _head_shards(q) != 0:
+        raise NotImplementedError(
+            f"{cfg.n_kv_heads} KV heads do not divide over {_head_shards(q)} head shards")
+    k = shard_hint(k, "batch", None, "kv_heads", None)
+    v = shard_hint(v, "batch", None, "kv_heads", None)
+    if not is_dtensor(positions):
+        positions = like_batch(positions, q, batch_dim=positions.ndim - 2)
+    if causal is None:
+        causal = not cross
+
+    def core(q, k, v, positions):
+        if cross:
+            q_pos = positions[0] if positions.ndim == 2 else positions[0][0]
+            k_pos1d = torch.arange(k.shape[1], device=q.device)
+        else:
+            q, k, q_pos = _rope_qk(q, k, positions, cfg, False)
+            k_pos1d = q_pos
+        return _plain_core(q, k, v, q_pos, k_pos1d, cfg, causal=causal, window=window,
+                           scale=scale)
+
+    args = (q, k, v, positions)
+    fn = local_map(core, out_placements=list(q.placements),
+                   in_placements=tuple(a.placements for a in args), device_mesh=q.device_mesh)
+    return fn(*args)
+
+
+def _head_shards(q) -> int:
+    """Into how many parts q's head dim (2) is cut on its mesh."""
+    n = 1
+    for m, p in enumerate(q.placements):
+        if p.is_shard(2):
+            n *= q.device_mesh.size(m)
+    return n
+
+
 def multihead_attention(
     p: Params,
     x: torch.Tensor,                  # [B, Sq, D_model]
@@ -273,19 +357,26 @@ def multihead_attention(
         if cross_kv is None:
             k = rmsnorm(k, p["k_norm"], kernel=kernels)
 
-    # RoPE on self-attention only (seamless's cross K/V carry none).  q_pos:
-    # [Sq] shared across rows, or [B, Sq] per row (ragged: positions already
-    # carry each row's cache_pos)
+    scale = cfg.attn_logit_scale if cfg.attn_logit_scale is not None else 1.0 / math.sqrt(hd)
+    window = layer_window
+    if window is not None and window <= 0:
+        window = None
+    if is_dtensor(q):
+        # on a mesh (the training forward: no cache): the core runs on each
+        # rank's batch rows and heads; the reference's hint (layers.py:325)
+        q = shard_hint(q, "batch", None, "heads", None)
+        if kv_cache is not None or q_lens is not None:
+            raise NotImplementedError("attention on a mesh takes no cache and no q_lens")
+        out = _attention_on_mesh(q, k, v, positions, cfg, cross=cross_kv is not None,
+                                 causal=causal, window=window, scale=scale)
+        out = out.reshape(b, sq, cfg.n_heads * hd) @ p["wo"]
+        return shard_hint(out, "batch", None, "embed"), None
+
+    # RoPE on self-attention only (seamless's cross K/V carry none)
     if cross_kv is not None:
         q_pos = positions[0] if positions.ndim == 2 else positions[0][0]
-    elif cfg.mrope_sections is not None:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-        q_pos = positions[0] if ragged else positions[0][0]   # the temporal stream
     else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        q_pos = positions if ragged else positions[0]
+        q, k, q_pos = _rope_qk(q, k, positions, cfg, ragged)
 
     new_cache = None
     paged = kv_cache is not None and cross_kv is None and "table" in kv_cache
@@ -320,14 +411,7 @@ def multihead_attention(
         if causal is None:
             causal = cross_kv is None
 
-    g = k.shape[2]
-    n_rep = cfg.n_heads // g
-    scale = cfg.attn_logit_scale if cfg.attn_logit_scale is not None else 1.0 / math.sqrt(hd)
-    window = layer_window
-    if window is not None and window <= 0:
-        window = None
-    impl = cfg.attention_impl
-    if impl == "pallas":
+    if cfg.attention_impl == "pallas":
         if q_pos.ndim == 2:
             offs = q_pos[:, 0]
         else:
@@ -344,19 +428,8 @@ def multihead_attention(
                 q.contiguous(), k, v, offs, lens,
                 scale=scale, causal=causal, window=window, softcap=cfg.attn_softcap,
             )
-    elif impl == "chunked" and k.shape[1] > cfg.attn_chunk and sq > 1:
-        qg = q.reshape(b, sq, g, n_rep, hd)
-        out = _chunked_attention(
-            qg, k, v, q_pos, k_pos1d,
-            causal=causal, window=window, cap=cfg.attn_softcap, scale=scale,
-            chunk=cfg.attn_chunk,
-        )
     else:
-        qg = q.reshape(b, sq, g, n_rep, hd)
-        out = fa_kernel.masked_attention(
-            qg, k, v, fa_kernel.attn_mask(q_pos, k_pos1d, causal, window),
-            scale=scale, cap=cfg.attn_softcap,
-        ).to(x.dtype)
+        out = _plain_core(q, k, v, q_pos, k_pos1d, cfg, causal=causal, window=window, scale=scale)
 
     out = out.reshape(b, sq, cfg.n_heads * hd)
     if q_lens is not None:
@@ -375,12 +448,12 @@ def multihead_attention(
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
+    gate = shard_hint(x @ p["w_gate"], "batch", None, "ff")
+    up = shard_hint(x @ p["w_up"], "batch", None, "ff")
     if activation == "silu":
         h = F.silu(gate) * up
     elif activation in ("geglu", "gelu"):
         h = F.gelu(gate, approximate="tanh") * up
     else:
         raise ValueError(activation)
-    return h @ p["w_down"]
+    return shard_hint(h @ p["w_down"], "batch", None, "embed")

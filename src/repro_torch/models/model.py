@@ -18,6 +18,8 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.context import is_dtensor
+from repro_torch.parallel.vocab import cross_entropy_parts
 from . import encdec, transformer
 
 
@@ -112,7 +114,13 @@ def cross_entropy_loss(
 ) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels that are not −1, in
     fp32, plus the z-loss ``z_loss · mean(lse²)`` (PaLM-style, stabilizes
-    the softmax normalizer) and ``aux_weight · aux_loss``."""
+    the softmax normalizer) and ``aux_weight · aux_loss``.  DTensor logits
+    (a mesh) take the vocab-parallel sums of
+    :func:`~repro_torch.parallel.vocab.cross_entropy_parts`."""
+    if is_dtensor(logits):
+        total_nll, total_lse2, count = cross_entropy_parts(logits, labels)
+        denom = count.clamp_min(1.0)
+        return total_nll / denom + z_loss * total_lse2 / denom + aux_weight * aux_loss
     logits = logits.float()
     labels = torch.as_tensor(labels).to(device=logits.device, dtype=torch.int64)
     lse = torch.logsumexp(logits, dim=-1)

@@ -10,9 +10,13 @@
 * :func:`moe_reference` — the reference's dense one-hot dispatch (every
   expert on every token, E× the expert flops): a test oracle, never served.
 
-The reference's single-device ``moe_apply`` falls back to its dense
-dispatch; its expert-parallel path (``parallel/moe_parallel.py``, with
-``jax.lax.ragged_dot``) is not ported (multi-card work).  Config notes:
+Under a parallel context on a real mesh whose expert axes divide the
+padded expert count, :func:`moe_apply` dispatches to the expert-parallel
+path, :func:`repro_torch.parallel.moe_parallel.moe_ep` (the reference's
+``parallel/moe_parallel.py``: capacity-bounded all-to-all dispatch, the
+local experts' products through the same grouped GEMM), as the reference's
+``moe_apply`` does; outside one it runs the sorted dispatch below (the
+reference falls back to its dense dispatch there).  Config notes:
 qwen2-moe's 60 routed experts are padded to 64 (padding experts' router
 logits are -1e30, so they are never chosen); arctic's parallel dense FFN
 and qwen2-moe's merged shared experts are added by the caller
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import grouped_gemm as gg_kernel
+from repro_torch.parallel.context import current_context, is_dtensor
 
 Params = Dict[str, Any]
 
@@ -90,10 +95,18 @@ def moe_apply(
     and every step is deterministic (a stable sort, a gather, and a scatter
     to distinct rows — no atomic accumulation), so greedy tokens repeat run
     to run.  ``kernel=True`` calls the grouped GEMM's wrapper (the CUDA
-    kernel for a CUDA tensor); otherwise its plain version."""
+    kernel for a CUDA tensor); otherwise its plain version.  On a mesh
+    (DTensor ``x`` under a context whose ``ep_axes`` divide the padded
+    expert count) it is :func:`~repro_torch.parallel.moe_parallel.moe_ep`."""
+    ctx = current_context()
+    e_pad = cfg.n_experts_padded or cfg.n_experts
+    if ctx is not None and ctx.ep_axes and is_dtensor(x) and e_pad % ctx.axis_size(ctx.ep_axes) == 0:
+        from repro_torch.parallel.moe_parallel import moe_ep
+
+        y, aux = moe_ep(p, x, cfg, ctx, kernel=kernel)
+        return (y, aux) if with_aux else y
     b, s, d = x.shape
     k = cfg.top_k
-    e_pad = cfg.n_experts_padded or cfg.n_experts
     xt = x.reshape(b * s, d)
     routed = router_topk(p["router"], xt, cfg, with_aux=with_aux)
     weights, experts = routed[0], routed[1]               # [T, k]

@@ -48,6 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel.context import is_dtensor, shard_hint
+from repro_torch.parallel.vocab import embed_lookup
 from .layers import Params, uses_kernels, mlp, multihead_attention, rmsnorm, softcap
 from .moe import moe_apply
 from .ssm import layer_state, mamba2_block, stacked_init_state, store_state
@@ -208,6 +210,10 @@ def _embed_in(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     embed = params["embed"]
     if _uses_embeds(cfg):
         x = batch["embeds"].to(device=embed.device, dtype=torch_dtype(cfg))
+    elif is_dtensor(embed):
+        # on a mesh: the index gather on each rank's vocab rows
+        # (parallel/vocab.py); DTensor's own rule would gather the table
+        x = embed_lookup(embed, batch["tokens"])
     else:
         x = embed[batch["tokens"].to(device=embed.device, dtype=torch.int64)]
     b, s = x.shape[0], x.shape[1]
@@ -221,13 +227,13 @@ def _embed_in(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
         positions = torch.as_tensor(positions).to(device=x.device, dtype=torch.int32)
     else:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    return x, positions
+    return shard_hint(x, "batch", None, "embed"), positions
 
 
 def _logits_out(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rmsnorm(x, params["ln_final"], kernel=uses_kernels(cfg))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ head, cfg.logit_softcap)
+    return shard_hint(softcap(x @ head, cfg.logit_softcap), "batch", None, "vocab")
 
 
 def _dense_stack(params, x, cfg, positions, caches, cache_pos, q_lens=None, page_table=None):
@@ -373,6 +379,21 @@ def remat(fn, on: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def _mamba_on_mesh(p: Params, x, cfg: ModelConfig):
+    """A Mamba2 block of the training forward on a mesh: whole on each
+    rank's batch rows.  Its weights (TP-sharded at rest where the rules say
+    so) are gathered for it, and their gradients are partial over the mesh
+    dims that split the batch; the output takes ``x``'s layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if pl.is_shard(0) else Replicate() for pl in x.placements]
+    local = {k: t.redistribute(mesh, whole).to_local(grad_placements=grad) for k, t in p.items()}
+    out, _ = mamba2_block(local, x.to_local(), cfg)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False)
+
+
 def train_forward(params, batch, cfg: ModelConfig):
     """The training forward: (logits ``[B, S, V]``, aux loss) over the whole
     sequence, with no cache — nothing is written in place.  The aux loss is
@@ -387,7 +408,10 @@ def train_forward(params, batch, cfg: ModelConfig):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def mamba(layer_p, x):
-        out, _ = mamba2_block(layer_p["mamba"], rmsnorm(x, layer_p["ln"]), cfg)
+        h = rmsnorm(x, layer_p["ln"])
+        if is_dtensor(h):
+            return x + _mamba_on_mesh(layer_p["mamba"], h, cfg)
+        out, _ = mamba2_block(layer_p["mamba"], h, cfg)
         return x + out
 
     mamba_fn = remat(mamba, cfg.remat)

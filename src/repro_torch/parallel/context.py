@@ -1,0 +1,130 @@
+"""Logical-axis sharding context (a minimal flax-style axis-rules mechanism).
+
+Models annotate activations with *logical* axis names; the launcher installs
+a mapping from logical names to mesh axis names.  Outside any context (unit
+tests, single-device runs, serving) every hint is a no-op, so model code
+never depends on a mesh being present.
+
+Under a context whose mesh holds a ``DeviceMesh``, a hint on a DTensor
+redistributes it to the placements its logical names give — the port's
+counterpart of ``with_sharding_constraint``: where the reference lets the
+partitioner place a collective, the hint is where DTensor runs it (a
+row-parallel product's partial sums are all-reduced at the hint after it).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.launch.mesh import Mesh, PartitionSpec as P, placements
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+_state = threading.local()
+
+
+def _current() -> Optional["ParallelContext"]:
+    return getattr(_state, "ctx", None)
+
+
+class ParallelContext:
+    """Holds the mesh + logical→mesh axis rules + feature flags."""
+
+    def __init__(
+        self,
+        mesh: Optional[Mesh],
+        rules: Optional[Dict[str, MeshAxes]] = None,
+        *,
+        ep_axes: Tuple[str, ...] = (),
+        dp_axes: Tuple[str, ...] = (),
+        tp_axis: Optional[str] = None,
+    ):
+        self.mesh = mesh
+        self.rules = dict(rules or {})
+        self.ep_axes = ep_axes
+        self.dp_axes = dp_axes
+        self.tp_axis = tp_axis
+
+    def spec_for(self, logical: Sequence[Optional[str]]) -> P:
+        axes = []
+        for name in logical:
+            axes.append(self.rules.get(name) if name is not None else None)
+        return P(*axes)
+
+    # mesh axis sizes the MoE layer needs for static shapes
+    def axis_size(self, names: Union[str, Tuple[str, ...]]) -> int:
+        if self.mesh is None:
+            return 1
+        if isinstance(names, str):
+            names = (names,)
+        size = 1
+        for n in names:
+            size *= self.mesh.shape[n]
+        return size
+
+
+@contextlib.contextmanager
+def parallel_context(ctx: ParallelContext):
+    prev = _current()
+    _state.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _state.ctx = prev
+
+
+def current_context() -> Optional[ParallelContext]:
+    return _current()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Redistribute ``x`` to the placements of its logical axis names; a
+    no-op without a context, on an abstract mesh, or on a plain tensor."""
+    ctx = _current()
+    if ctx is None or ctx.mesh is None or ctx.mesh.device_mesh is None or not is_dtensor(x):
+        return x
+    want = placements(ctx.spec_for(logical), ctx.mesh)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(ctx.mesh.device_mesh, want)
+
+
+# Default logical-axis rule set used by the launcher: batch → data parallel,
+# heads/ff/vocab/experts → tensor/expert parallel.
+def default_rules(multi_pod: bool) -> Dict[str, MeshAxes]:
+    dp: MeshAxes = ("pod", "data") if multi_pod else ("data",)
+    return {
+        "batch": dp,
+        "heads": "model",
+        "kv_heads": "model",
+        "ff": "model",
+        "vocab": "model",
+        "embed": None,
+        "seq": None,
+        "kv_seq": "data",      # long-context decode: KV cache sharded over data
+        "experts": dp,          # EP over the data-parallel axes
+        "expert_ff": "model",
+    }
+
+
+def like_batch(t: torch.Tensor, x, *, batch_dim: int = 0):
+    """``t`` (the same full tensor on every rank, its batch on
+    ``batch_dim``) as a DTensor cut over the batch like DTensor ``x``'s
+    dim 0, whole on ``x``'s other mesh dims — each rank keeps its rows,
+    with no communication."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = [Shard(batch_dim) if p.is_shard(0) else Replicate() for p in x.placements]
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError(f"{x.placements}: a partial sum has no rows to follow")
+    return distribute_tensor(t, x.device_mesh, pl, src_data_rank=None)

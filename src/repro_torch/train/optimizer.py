@@ -5,8 +5,14 @@ State: first/second moments in fp32 (+ step counter), or 8-bit moments
 (int8 ``q`` + per-row fp32 scales ``s``).  The update is functional — new
 tensors for the params and the state, the old ones untouched — so a caller
 can drop a step (the train loop's NaN breaker) by keeping what it had.
-The reference's ZeRO-1 shardings (``zero1_shardings``) need a device mesh
-and are not ported (ROADMAP A13, with ``parallel/``).
+
+ZeRO-1 (``zero1_shardings``): on a mesh the fp32 moments are DTensors
+spread over ALL mesh axes on the largest dimensions of each param —
+optimizer state is pure elementwise, so any sharding is valid; sharding it
+over DP too removes the 8·N bytes of replicated state.  The update then
+runs on each rank's moment shard: the gradient's partial sums are reduced
+straight into the moments' layout, the param is sliced to it, and the new
+param goes back to the param's own (TP) layout.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import Mesh, PartitionSpec as P, placements
+from repro_torch.parallel.context import is_dtensor
 from .tree import is_quant_leaf, leaves, tree_map
 
 
@@ -33,12 +41,26 @@ class AdamWConfig:
     min_lr_frac: float = 0.1
 
 
-def init_opt_state(params, *, quant8: bool = False) -> Dict[str, Any]:
+def init_opt_state(params, *, quant8: bool = False, mesh=None) -> Dict[str, Any]:
     """quant8: store moments as int8 + per-row fp32 scales (8-bit Adam à la
     Dettmers) — 2 bytes/param of optimizer state instead of 8.  Every
-    tensor lives on its param's device."""
+    tensor lives on its param's device.  With a ``mesh`` (DTensor params)
+    the fp32 moments are made in their ZeRO-1 layout (:func:`_zero1_spec`),
+    each rank allocating its shard only; the step counter stays a plain
+    0-dim tensor on every rank."""
     some = leaves(params)[0]
     step = torch.zeros((), dtype=torch.int32, device=some.device)
+    if mesh is not None:
+        if quant8:
+            raise NotImplementedError("8-bit moments on a mesh")
+        from torch.distributed.tensor import zeros as dzeros
+
+        def zero1(p):
+            pl = placements(_zero1_spec(tuple(p.shape), mesh), mesh)
+            return dzeros(tuple(p.shape), dtype=torch.float32, device_mesh=mesh.device_mesh,
+                          placements=pl)
+
+        return {"m": tree_map(zero1, params), "v": tree_map(zero1, params), "step": step}
     if not quant8:
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -114,6 +136,9 @@ def adamw_update(
     :func:`decay_mask`); each new param is cast back to its dtype."""
     quant8 = is_quant_state(state)
     step = state["step"] + 1
+    # ZeRO-1: each gradient (its partial sums over the batch's ranks
+    # included) reduced into its moments' layout
+    grads = tree_map(_like, grads, state["m"], is_leaf=is_quant_leaf)
     gnorm = global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     lr = lr_schedule(cfg, step)
@@ -128,6 +153,8 @@ def adamw_update(
     def upd(p, g, m, v, dec):
         if quant8:
             m, v = _dequant(m), _dequant(v)
+        p_own = p
+        p = _like(p, m)
         g = g.to(torch.float32) * clip
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
@@ -136,7 +163,7 @@ def adamw_update(
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         if dec:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        newp = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        newp = _like((p.to(torch.float32) - lr * delta).to(p.dtype), p_own)
         if quant8:
             m, v = _quant(m), _quant(v)
         return (newp, m, v)
@@ -147,3 +174,43 @@ def adamw_update(
     new_m = tree_map(lambda t: t[1], out, is_leaf=is3)
     new_v = tree_map(lambda t: t[2], out, is_leaf=is3)
     return new_params, {"m": new_m, "v": new_v, "step": step}, gnorm
+
+
+def _like(x, ref):
+    """``x`` in ``ref``'s DTensor layout (a no-op for plain tensors)."""
+    if not is_dtensor(ref) or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1: shard m/v over every mesh axis along each param's largest dim
+# --------------------------------------------------------------------------
+
+
+def _zero1_spec(shape: Tuple[int, ...], mesh: Mesh) -> P:
+    """Shard the largest divisible dims greedily over every mesh axis.
+    Optimizer state is elementwise, so ANY sharding is valid; maximal
+    sharding (incl. the DP axes) is what ZeRO-1 buys."""
+    axes: list = [None] * len(shape)
+    for name in mesh.axis_names:
+        size = mesh.shape[name]
+        cands = [
+            (shape[i], i)
+            for i in range(len(shape))
+            if axes[i] is None and shape[i] % size == 0 and shape[i] >= size
+        ]
+        if not cands:
+            continue
+        _, i = max(cands)
+        axes[i] = name
+    return P(*axes)
+
+
+def zero1_shardings(mesh: Mesh, opt_state_shape) -> Any:
+    """Spec tree matching an opt-state shape tree (fp32 or quant8)."""
+
+    def one(leaf):
+        return _zero1_spec(tuple(leaf.shape), mesh)
+
+    return tree_map(one, opt_state_shape)

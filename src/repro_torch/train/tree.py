@@ -48,3 +48,17 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable[[Any], bool] = lambda 
             tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf) for i, v in enumerate(tree)
         )
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree):
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping the
+    structure; a path as in :func:`leaves_with_paths`."""
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(node[k], prefix + (k,)) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, prefix + (i,)) for i, v in enumerate(node))
+        return fn(prefix, node)
+
+    return walk(tree, ())

@@ -1,7 +1,7 @@
 """The port stands alone: every module of ``repro_torch`` imports with JAX
 blocked, and no source under ``src/repro_torch/`` (nor ``chip_smoke.py``,
-``time_grouped_gemm.py`` and the ``tests/_mrope_streams.py`` they import)
-imports ``jax`` or anything of ``repro``."""
+``time_grouped_gemm.py`` and the ``tests/_mrope_streams.py`` and
+``tests/_torch_mesh_ranks.py`` they import) imports ``jax`` or anything of ``repro``."""
 
 import os
 import re
@@ -20,7 +20,8 @@ _IMPORT = re.compile(
 
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "time_grouped_gemm.py",
-                                         ROOT / "tests" / "_mrope_streams.py"]
+                                         ROOT / "tests" / "_mrope_streams.py",
+                                         ROOT / "tests" / "_torch_mesh_ranks.py"]
     return [f for f in files if f.exists()]
 
 
@@ -36,8 +37,12 @@ def test_every_module_imports_with_jax_blocked(tmp_path):
         # the trainer's and the planner tools' modules are among them
         "assert {'repro_torch.core.placeto', 'repro_torch.data.pipeline',"
         " 'repro_torch.launch.train', 'repro_torch.launch.calibrate_invariant'} <= set(names)\n"
-        "assert {'repro_torch.train.' + m for m in ('checkpoint', 'compression', 'loop',"
-        " 'optimizer', 'step', 'tree')} <= set(names)\n"
+        "assert {'repro_torch.train.' + m for m in ('checkpoint', 'compression', 'elastic',"
+        " 'loop', 'optimizer', 'step', 'tree')} <= set(names)\n"
+        # the mesh-sharded trainer's modules too
+        "assert {'repro_torch.parallel.' + m for m in ('collectives', 'context', 'moe_parallel',"
+        " 'sharding', 'vocab')} | {'repro_torch.launch.mesh', 'repro_torch.launch.dryrun'}"
+        " <= set(names)\n"
         # ...and they run: the train CLI (with a resume), the calibration
         # and a placeto plan
         "from repro_torch.launch.train import main as train_main\n"
