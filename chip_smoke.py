@@ -255,6 +255,30 @@ Phases (any failure exits non-zero; nothing is caught):
    by two on (1 x 2) from the host: the step, every tensor bit-equal to
    the checkpoint, the next loss within 1e-5 relative of the four ranks'
    second step.
+15. the launch tools.  ``[dryrun]``: the dry-run of every arch at
+   decode_32k, long_500k and train_4k, and of arctic-480b at prefill_32k,
+   on the (16 x 16) production mesh (the other prefill cells and the
+   (2 x 16 x 16) mesh are left to the CLI): one rank's step on fake CUDA
+   tensors over a fake process group of 256 ranks, counted against one
+   H100's terms.  It needs no card: its processes (``DRYRUN_JOBS``,
+   niced, each queue a process group) start with the script, run beside
+   the build, the trainer and the sharded trainer, are stopped before the
+   first kernel check and go on only once ``[dryrun-card]`` is done, so no
+   host-timed phase shares the host with them.  A line a cell (dominant
+   term, the three terms, ``fit_estimate_gb``, ``fits_80gb``),
+   arctic-480b x train_4k on a line of its own; any cell in error fails.
+   ``[roofline-fd]``: the finite difference of llama3.2-1b x decode_32k
+   and qwen2-moe-a2.7b x train_4k, each rebuilt count equal to the
+   direct one.  ``[dryrun-card]``: llama3.2-1b at full width on a
+   one-rank mesh (``CARD_CELLS``: decode_32k at 16 rows, prefill_32k at
+   1, train_4k at 4), each through ``run_cell`` on fake tensors and on
+   real ones: FLOPs, bytes and collective bytes identical, the predicted
+   peak within 15% of ``max_memory_allocated``, the median of 5
+   synchronized steps at or above ``step_time_lb_s`` (``lb / measured``
+   printed); the serving cells again at ``attention_impl="pallas"`` (flash
+   and RMSNorm launches required), held to that step's own bound: the
+   counter's count of the rest of the step plus each launch's work
+   (``kernel_work``: ``flash_work`` and ``rms_work`` on its inputs).
 
 Each phase's wall time is printed as a ``[phase]`` line.
 
@@ -265,6 +289,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -275,6 +300,7 @@ import pickle
 import platform
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -295,7 +321,7 @@ sys.path.insert(0, str(SRC))
 sys.path.insert(0, str(ROOT))
 sys.path.append(str(ROOT / "tests"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core.costmodel import expected_accepted_tokens  # noqa: E402
 from repro_torch.core.devices import h100_cluster  # noqa: E402
 from repro_torch.core.placement import PlanConfig  # noqa: E402
@@ -1285,42 +1311,45 @@ def phase_trace(eng, cfg, dev, tag="[trace]") -> None:
     eng.run_until_drained()
 
 
-def device_busy_s(prof) -> float:
-    """Seconds the card was busy: the union of the device-side events'
+def device_events(prof) -> tuple:
+    """The trace's device-side events (kernels, copies), read from the
+    profiler's raw results: its per-op event tree (``events()``,
+    ``key_averages()``), which these numbers do not need, takes seconds to
+    build for each trace.  Returns ``(rows, busy_s)``: rows ``(device us,
+    name, calls)``, one a name; ``busy_s`` the union of the events'
     intervals, so kernels that overlap (the decode merge, launched as a
     programmatic dependent, starts before the decode kernel ends) count
     once."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")
-                   and e.time_range.end > e.time_range.start)
-    busy, lo, hi = 0, None, None
-    for s, e in spans:
-        if hi is None or s > hi:
-            busy += 0 if hi is None else hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    return (busy + (0 if hi is None else hi - lo)) / 1e6
-
-
-def report_trace(prof, wall, tag, what) -> None:
-    """Device time by kernel (device-side rows only) and the card's idle
-    share of ``wall``."""
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's row repeats
-        # the device time of the kernels it launched
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+    by_name, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA") or e.is_user_annotation():
             continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0)
-        if dt > 0:
-            rows.append((dt, e.key, e.count))
-    busy = device_busy_s(prof)
+        start, end = e.start_ns(), e.end_ns()
+        if end <= start:
+            continue
+        spans.append((start, end))
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + end - start, n + 1)
+    busy, lo, hi = 0, None, None
+    for start, end in sorted(spans):
+        if hi is None or start > hi:
+            busy += 0 if hi is None else hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    rows = [(ns / 1e3, name, n) for name, (ns, n) in by_name.items()]
+    return rows, (busy + (0 if hi is None else hi - lo)) / 1e9
+
+
+def report_trace(prof, wall, tag, what) -> list:
+    """Device time by kernel (device-side rows only) and the card's idle
+    share of ``wall``; returns the rows (:func:`device_events`)."""
+    t0 = time.perf_counter()
+    rows, busy = device_events(prof)
     log(f"{tag} {what}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (kernel "
         f"times summed {sum(r[0] for r in rows) / 1e3:.2f} ms), device idle share "
-        f"{1 - busy / wall:.3f}" if rows else
+        f"{1 - busy / wall:.3f}; {len(rows)} kernel names read in "
+        f"{time.perf_counter() - t0:.2f}s" if rows else
         f"{tag} the profiler recorded no device time: not measured")
     for dt, key, n in sorted(rows, reverse=True)[:12]:
         log(f"{tag}   {dt / 1e3:9.3f} ms {100 * dt / 1e6 / wall:5.1f}% x{n:<5d} {key[:90]}")
@@ -1342,6 +1371,7 @@ def report_trace(prof, wall, tag, what) -> None:
     if copies:
         log(f"{tag}   copies: " + "; ".join(f"{key[:40]} {dt / 1e3:.3f} ms x{n}"
                                            for dt, key, n in copies))
+    return rows
 
 
 def phase_parity(dev, arch=LLAMA, paged=False) -> None:
@@ -3212,21 +3242,17 @@ def phase_serve_encdec(dev) -> dict:
     return {"cli": first_counts, "per_forward": per_fwd, "encode": enc, "tok_s": tok_s}
 
 
-def flash_rows_by_addr(prof) -> dict:
-    """Device time (ms) and calls of the flash kernels, by how they address
-    K/V: ``DenseKV`` or ``PagedKV`` (the merge kernel, which reads only the
-    workspace, apart)."""
+def flash_rows_by_addr(rows) -> dict:
+    """Device time (ms) and calls of the flash kernels in ``rows``
+    (:func:`device_events`), by how they address K/V: ``DenseKV`` or
+    ``PagedKV`` (the merge kernel, which reads only the workspace, apart)."""
     out = {}
-    for e in prof.key_averages():
-        if not (str(getattr(e, "device_type", "")).endswith("CUDA") and "flash_fwd" in e.key):
+    for dt, key, count in rows:
+        if "flash_fwd" not in key:
             continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0)
-        kind = ("DenseKV" if "DenseKV" in e.key else "PagedKV" if "PagedKV" in e.key
-                else "merge")
+        kind = "DenseKV" if "DenseKV" in key else "PagedKV" if "PagedKV" in key else "merge"
         ms, n = out.get(kind, (0.0, 0))
-        out[kind] = (ms + dt / 1e3, n + e.count)
+        out[kind] = (ms + dt / 1e3, n + count)
     return out
 
 
@@ -3252,9 +3278,8 @@ def phase_trace_encdec(model, params, cfg, dev) -> None:
         wall = time.perf_counter() - t0
     check_forwards(drv.steps, cfg, "[trace-encdec]", paged=True)
     n_big = sum(1 for s, _ in drv.steps[1:] if s > 1)
-    report_trace(prof, wall, "[trace-encdec]", f"16 decoder steps ({n_big} at S=64), self cache "
-                 "paged P64")
-    rows = flash_rows_by_addr(prof)
+    rows = flash_rows_by_addr(report_trace(
+        prof, wall, "[trace-encdec]", f"16 decoder steps ({n_big} at S=64), self cache paged P64"))
     log("[trace-encdec]   flash by instance: " + "; ".join(
         f"{'cross-attention (DenseKV)' if k == 'DenseKV' else 'self-attention (PagedKV)' if k == 'PagedKV' else 'decode merge'} "
         f"{ms:.3f} ms x{n}" for k, (ms, n) in sorted(rows.items())))
@@ -3649,6 +3674,9 @@ MESH_BATCH, MESH_SEQ, MESH_STEPS = 8, 128, 2
 # holds the old and the new params and ZeRO-1 moments at once (4 layers
 # ran out of memory on the card: ~20 GB a rank)
 MESH_MOE_LAYERS = 2
+# of llama3.2-1b's 16, at full width: the script's time limit (at 16 the
+# two llama phases took 255 s of the card's time, 4 save ~5 GB of state)
+MESH_LLAMA_LAYERS = 4
 MESH_LR = 1e-3
 MESH_TIMEOUT = 420.0             # seconds one group of ranks may take
 MESH_BF16_LOSS_TOL = 1e-2        # relative, sharded vs one process, bf16
@@ -3814,7 +3842,7 @@ def mesh_rank(rank, world, dev, fp32_ref, ckpt, ep_inputs):
     mesh = make_debug_mesh(world, device_type=dev.type)
     out = {"mesh": dict(mesh.shape), "routed": functional_collectives_routed()}
     for key, cfg, steps, ref, save in (
-        ("llama_bf16", mesh_cfg(LLAMA), MESH_STEPS, None, ckpt),
+        ("llama_bf16", mesh_cfg(LLAMA, n_layers=MESH_LLAMA_LAYERS), MESH_STEPS, None, ckpt),
         ("llama_fp32", mesh_cfg(LLAMA, n_layers=2, dtype="float32"), 1, fp32_ref, None),
         ("moe_bf16", mesh_cfg(MOE, n_layers=MESH_MOE_LAYERS), MESH_STEPS, None, None),
     ):
@@ -3876,7 +3904,8 @@ def _collectives_line(c: dict) -> str:
 
 def phase_mesh_train(dev, ckpt, ep_inputs) -> dict:
     """[mesh-train]: four ranks on the card over gloo, a (2 data x 2 model)
-    mesh.  llama3.2-1b at full width (16 layers, vocab 128256), bf16
+    mesh.  llama3.2-1b at full width (vocab 128256) and
+    ``MESH_LLAMA_LAYERS`` of its 16 layers, bf16
     params, fp32 ZeRO-1 moments, 8 x 128 tokens a step from the seeded
     pipeline, 2 steps: every loss finite, and each step's loss and grad
     norm within 1e-2 relative of the same steps in one process on the
@@ -3897,7 +3926,8 @@ def phase_mesh_train(dev, ckpt, ep_inputs) -> dict:
         fp32_ref = os.path.join(tmp, "llama_fp32_step.pt")
         t0 = time.perf_counter()
         refs = {
-            "llama_bf16": _single_process(mesh_cfg(LLAMA), dev, MESH_STEPS),
+            "llama_bf16": _single_process(mesh_cfg(LLAMA, n_layers=MESH_LLAMA_LAYERS), dev,
+                                          MESH_STEPS),
             "llama_fp32": _single_process(mesh_cfg(LLAMA, n_layers=2, dtype="float32"), dev, 1,
                                           save=fp32_ref),
             "moe_bf16": _single_process(mesh_cfg(MOE, n_layers=MESH_MOE_LAYERS), dev, MESH_STEPS,
@@ -3920,7 +3950,7 @@ def phase_mesh_train(dev, ckpt, ep_inputs) -> dict:
     if not all(o["routed"] for o in outs):
         raise AssertionError("[mesh-train] DTensor's functional collectives were not routed")
     result = {"ranks_s": t_ranks, "references_s": t_ref, "moe": [o["moe"] for o in outs]}
-    for key, what in (("llama_bf16", f"{LLAMA} bf16 16 layers"),
+    for key, what in (("llama_bf16", f"{LLAMA} bf16 {MESH_LLAMA_LAYERS} layers"),
                       ("llama_fp32", f"{LLAMA} fp32 2 layers"),
                       ("moe_bf16", f"{MOE} bf16 {MESH_MOE_LAYERS} layers")):
         r0, ref = outs[0][key], refs[key]
@@ -4164,7 +4194,7 @@ def mesh_elastic_resume_rank(rank, world, dev, ckpt):
     from repro_torch.train.step import make_train_step
     from repro_torch.train.tree import leaves_with_paths
 
-    cfg = mesh_cfg(LLAMA)
+    cfg = mesh_cfg(LLAMA, n_layers=MESH_LLAMA_LAYERS)
     mesh = make_debug_mesh(world, device_type=dev.type)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4203,7 +4233,8 @@ def mesh_elastic_resume_rank(rank, world, dev, ckpt):
 
 
 def phase_mesh_elastic(four, ckpt) -> dict:
-    """[mesh-elastic]: [mesh-train]'s full-width bf16 llama3.2-1b state
+    """[mesh-elastic]: [mesh-train]'s bf16 llama3.2-1b state (full width,
+    ``MESH_LLAMA_LAYERS`` layers)
     after its first step, saved by the four ranks on (2 x 2) as step 42
     (``four``: that run's results; the checkpoint in ``ckpt``), resumed by
     two ranks on (1 x 2): the step matches, every restored tensor gathered
@@ -4217,9 +4248,10 @@ def phase_mesh_elastic(four, ckpt) -> dict:
                leaves=sum(o["checked"] for o in outs))
     cont = four["losses"][1]
     err = _rel(two["loss"], cont)
-    log(f"[mesh-elastic] {LLAMA} bf16 16 layers saved at step {ELASTIC_STEP} on (2 x 2) "
-        f"({four['save_s']:.2f}s, rank 0 gathering and writing), resumed on {two['mesh']} at "
-        f"step {two['step']} ({two['resume_s']:.2f}s, peak {two['resume_peak_gb']:.2f} GB a rank; "
+    log(f"[mesh-elastic] {LLAMA} bf16 {MESH_LLAMA_LAYERS} layers saved at step {ELASTIC_STEP} on "
+        f"(2 x 2) ({four['save_s']:.2f}s, rank 0 gathering and writing), resumed on "
+        f"{two['mesh']} at step {two['step']} ({two['resume_s']:.2f}s, peak "
+        f"{two['resume_peak_gb']:.2f} GB a rank; "
         f"wq {two['wq']}); {two['leaves'] - len(two['unequal'])} of {two['leaves']} tensors "
         f"bit-equal; next loss {two['loss']:.7f} vs the 4-rank continuation {cont:.7f} (rel "
         f"{err:.2e}, bound {ELASTIC_LOSS_TOL:.0e}), step {two['step_s']:.2f}s, peak "
@@ -4337,6 +4369,47 @@ def flash_work(inp, extra) -> tuple:
     byts = 2 * q.numel() * es + 2 * keys_read * kv * d * es + 2 * b * 4
     flops = 4 * d * h * n_vis
     return byts, flops
+
+
+def rms_work(x, w) -> tuple:
+    """Bytes and flops of one RMSNorm: x read and the output written once,
+    w read once; four flops an element of x."""
+    return 2 * x.numel() * x.element_size() + w.numel() * w.element_size(), 4 * x.numel()
+
+
+@contextlib.contextmanager
+def kernel_work():
+    """The (kernel, bytes, flops) of each flash attention and RMSNorm
+    launch the models make while a dispatch mode is on (a step under the
+    dry-run's counter, which cannot see into a kernel), by
+    :func:`flash_work` and :func:`rms_work` on the launch's inputs; the
+    sums run with the mode off, unseen by the counter."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    work = []
+    flash0, rms0 = fa.flash_attention, rn.rmsnorm
+
+    def counting():
+        return torch._C._len_torch_dispatch_stack() > 0
+
+    def flash(q, k, v, q_offsets, q_lens=None, **kw):
+        if counting():
+            with _disable_current_modes():
+                lens = q_lens if q_lens is not None else torch.full_like(q_offsets, q.shape[1])
+                inp = {"q": q, "k": k, "q_offsets": q_offsets, "q_lens": lens}
+                work.append(("flash_attention", *flash_work(inp, kw)))
+        return flash0(q, k, v, q_offsets, q_lens, **kw)
+
+    def rms(x, w, eps=1e-6):
+        if counting():
+            work.append(("rmsnorm", *rms_work(x, w)))
+        return rms0(x, w, eps)
+
+    fa.flash_attention, rn.rmsnorm = flash, rms
+    try:
+        yield work
+    finally:
+        fa.flash_attention, rn.rmsnorm = flash0, rms0
 
 
 def bound(byts, flops, dtype):
@@ -4553,6 +4626,8 @@ def time_gg(dev, flush, rows, dtype) -> None:
                 library_ms=time_ms(dev, lib, iters=20, flush=flush), library=label,
                 bound_ms=b_ms, bound_by=b_by, bytes=byts, flops=flops, splits=splits,
                 host_us=host_us(dev, lambda: run_gg(gg.grouped_gemm, inp)),
+                op_host_us=host_us(dev, lambda: torch.ops.repro_torch.grouped_gemm(
+                    inp["x"], inp["w"], inp["group_sizes"], True)),
                 library_host_us=host_us(dev, lib),
             )
             log(f"[time] grouped_gemm {proj} {routing} bf16 x {tuple(inp['x'].shape)} w "
@@ -4561,7 +4636,8 @@ def time_gg(dev, flush, rows, dtype) -> None:
                 f"ms, {label} {r['library_ms']:.4f} ms (max abs diff to plain {lib_err:.3e}), "
                 f"bound {b_ms:.5f} ms ({b_by}: {byts / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
                 f"kernel/bound {r['ms'] / b_ms:.2f}x; host time a call: kernel "
-                f"{r['host_us']:.1f} us, {label} {r['library_host_us']:.1f} us")
+                f"{r['host_us']:.1f} us (through the custom op {r['op_host_us']:.1f} us), "
+                f"{label} {r['library_host_us']:.1f} us")
             del inp, ref, lib_out
 
 
@@ -4602,6 +4678,234 @@ def time_encdec_vlm(dev, flush, rows, dtype) -> None:
             bound_ms=b_ms, bound_by=b_by, shape=[list(inp["q"].shape), inp["k"].shape[1]],
         )
     time_paged(dev, flush, rows, VLM, "d128g7_", dtype)
+
+
+# ---------------------------------------------------------------------------
+# the launch tools: the dry-run sweep, its finite difference, and the card
+# ---------------------------------------------------------------------------
+
+# the sweep: every arch at decode_32k, long_500k and train_4k, and
+# arctic-480b's prefill_32k (the other prefill cells and the (2 x 16 x 16)
+# mesh are left to the CLI).  Fake tensors need no card, only CPU: its
+# queues start with the script, at the lowest priority, and run beside the
+# build, the trainer, the sharded trainer, the kernel checks and the parity
+# runs; then they are stopped (SIGSTOP) until [dryrun], so that no
+# host-timed phase (serving tok/s, the ratios, [time]'s host times,
+# [dryrun-card]'s steps) shares the host with them.  Each queue runs its
+# CLI calls one after another; the train cells, the long ones, are spread
+# over the queues.
+_DRY = ["repro_torch.launch.dryrun"]
+_FD = ["repro_torch.launch.roofline_fd", "--check"]
+DRYRUN_JOBS = {
+    "serve": [_DRY + ["--arch", "all", "--shape", "decode_32k,long_500k"],
+              _DRY + ["--arch", "arctic-480b", "--shape", "prefill_32k"],
+              _FD + ["--arch", "llama3.2-1b", "--shape", "decode_32k"],
+              _DRY + ["--arch", "mamba2-130m", "--shape", "train_4k"]],
+    "train-a": [_DRY + ["--arch", "arctic-480b,llama3.2-1b,qwen2-moe-a2.7b",
+                        "--shape", "train_4k"],
+                _FD + ["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k"]],
+    "train-b": [_DRY + ["--arch", "zamba2-2.7b,gemma2-27b", "--shape", "train_4k"]],
+    "train-c": [_DRY + ["--arch", "qwen3-14b,seamless-m4t-large-v2,gemma-7b,qwen2-vl-7b",
+                        "--shape", "train_4k"]],
+}
+# a queue: its calls in turn, niced, stopping at the first that fails
+_QUEUE = """
+import json, os, subprocess, sys
+os.nice(19)
+for argv in json.loads(sys.argv[1]):
+    subprocess.run([sys.executable, "-m", *argv], check=True)
+"""
+# [dryrun-card]: llama3.2-1b at full width on one card, seq_len kept, the
+# batch cut from SHAPES (decode_32k: 16 rows of 32k tokens, ~17 GB of KV)
+# and, for the script's time limit, the depth of the two long steps (at 16
+# layers the prefill step took 13.7 s, the train step 3.8 s, each run 7
+# times): (shape, global batch, layers)
+CARD_CELLS = (("decode_32k", 16, 16), ("prefill_32k", 1, 4), ("train_4k", 4, 4))
+DRYRUN_DEVICE = "cuda"           # the fake tensors' device
+CARD_PEAK_TOL = 0.15
+CARD_ITERS = 5
+
+
+def start_dryrun(out: Path) -> dict:
+    """Every queue of ``DRYRUN_JOBS`` as a process of its own, in a session
+    of its own (its CLI calls in its process group), its JSONs under
+    ``out/<queue>`` and its output in ``out/<queue>.log``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    jobs = {}
+    for name, calls in DRYRUN_JOBS.items():
+        (out / name).mkdir(parents=True, exist_ok=True)
+        argvs = [argv + ["--device", DRYRUN_DEVICE, "--out", str(out / name)] for argv in calls]
+        with open(out / f"{name}.log", "w") as f:
+            jobs[name] = subprocess.Popen([sys.executable, "-c", _QUEUE, json.dumps(argvs)],
+                                          cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                          start_new_session=True)
+    log(f"[dryrun] {len(jobs)} queues started: {', '.join(jobs)}")
+    return jobs
+
+
+def signal_dryrun(jobs: dict, sig) -> list:
+    """Send ``sig`` to the process group of every queue still running:
+    the names of those queues."""
+    live = [name for name, p in jobs.items() if p.poll() is None]
+    for name in live:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(jobs[name].pid, sig)
+    return live
+
+
+def pause_dryrun(jobs: dict) -> None:
+    live = signal_dryrun(jobs, signal.SIGSTOP)
+    log(f"[dryrun] {len(live)} queue(s) still running ({', '.join(live) or 'none'}): stopped "
+        f"until [dryrun]")
+
+
+def stop_dryrun(jobs: dict) -> None:
+    """Kill every queue and the CLI calls it started (its process group)."""
+    signal_dryrun(jobs, signal.SIGKILL)
+    for p in jobs.values():
+        p.wait()
+
+
+def phase_dryrun(jobs: dict, out: Path) -> dict:
+    """``[dryrun]`` and ``[roofline-fd]``: wait for the jobs, then a line
+    per cell.  Fails on a job that failed, a cell in error, or a finite
+    difference that does not rebuild its direct count."""
+    t0 = time.perf_counter()
+    signal_dryrun(jobs, signal.SIGCONT)
+    for name, p in jobs.items():
+        if p.wait() != 0:
+            tail = (out / f"{name}.log").read_text()[-3000:]
+            raise AssertionError(f"[dryrun] job {name} exited {p.returncode}:\n{tail}")
+    log(f"[dryrun] jobs joined after {time.perf_counter() - t0:.1f}s of waiting")
+    cells = {}
+    for fp in sorted(out.glob("*/*.json")):
+        cells[(fp.parent.name, fp.stem)] = json.loads(fp.read_text())
+    sweep = {k: r for k, r in cells.items() if "per_layer_unit" not in r}
+    errors = [k for k, r in sweep.items() if r["status"] == "error"]
+    if errors:
+        raise AssertionError(f"[dryrun] cells in error: {errors}")
+    shown = sorted(sweep.values(), key=lambda r: (r["multi_pod"], r["arch"], r["shape"]))
+    for r in shown:
+        pod = "2pod" if r["multi_pod"] else "1pod"
+        if r["status"] == "skipped":
+            log(f"[dryrun] {r['arch']} {r['shape']} {pod}: skipped ({r['reason']})")
+            continue
+        log(f"[dryrun] {r['arch']} {r['shape']} {pod}: dominant={r['dominant']} "
+            f"t_compute/t_memory/t_collective={r['t_compute_s']:.4g}/{r['t_memory_s']:.4g}/"
+            f"{r['t_collective_s']:.4g} s fit_estimate_gb={r['fit_estimate_gb']} "
+            f"fits_80gb={r['fits_80gb']} accum={r['accum_steps']} flops/dev="
+            f"{r['flops_per_device']:.4g} bytes/dev={r['bytes_per_device']:.4g} "
+            f"coll/dev={r['collective_bytes_per_device']:.4g} ({r['elapsed_s']}s)")
+    ok = [r for r in shown if r["status"] == "ok"]
+    want = {(a, s) for a in ARCHS for s in ("decode_32k", "train_4k")}
+    want.add(("arctic-480b", "prefill_32k"))
+    got = {(r["arch"], r["shape"]) for r in ok if not r["multi_pod"]}
+    if not want <= got:
+        raise AssertionError(f"[dryrun] single-pod cells missing: {sorted(want - got)}")
+    if len(shown) != len(want) + len(ARCHS):      # long_500k: ok or skipped, each arch
+        raise AssertionError(f"[dryrun] {len(shown)} cells, {len(want) + len(ARCHS)} expected")
+    arctic = next(r for r in ok if (r["arch"], r["shape"], r["multi_pod"])
+                  == ("arctic-480b", "train_4k", False))
+    log(f"[dryrun] arctic-480b x train_4k (item 6's proxy: one rank of 256, (16 x 16)): "
+        f"{arctic['params']:.4g} params, quant8 moments={arctic['quant8_opt']}, accum "
+        f"{arctic['accum_steps']}, arguments {arctic['memory']['argument_size_in_bytes'] / 1e9:.2f}"
+        f" GB a rank, fit_estimate_gb={arctic['fit_estimate_gb']}, fits_80gb="
+        f"{arctic['fits_80gb']}, step_time_lb_s={arctic['step_time_lb_s']:.4g} "
+        f"({arctic['dominant']})")
+    log(f"[dryrun] {len(ok)} cells ok, {len(shown) - len(ok)} skipped, 0 in error")
+    fd = {k: r for k, r in cells.items() if "per_layer_unit" in r}
+    for (_, tag), r in sorted(fd.items()):
+        if r["status"] != "ok" or not r.get("reconstruction_equal"):
+            raise AssertionError(f"[roofline-fd] {tag}: {r}")
+        log(f"[roofline-fd] {r['arch']} {r['shape']}: per layer unit flops="
+            f"{r['per_layer_unit']['flops']:.6g} bytes={r['per_layer_unit']['bytes']:.6g} "
+            f"coll={r['per_layer_unit']['coll']:.6g}; rebuilt = direct (flops "
+            f"{r['direct']['flops']:.6g}, bytes {r['direct']['bytes']:.6g}, coll "
+            f"{r['direct']['coll']:.6g})")
+    if len(fd) != 2:
+        raise AssertionError(f"[roofline-fd] {len(fd)} cells, 2 expected")
+    return {"cells": len(ok), "arctic": arctic}
+
+
+def phase_dryrun_card(dev) -> dict:
+    """``[dryrun-card]``: the dry-run's prediction held to the card.  Each
+    cell of ``CARD_CELLS`` runs through ``run_cell`` twice on a one-rank
+    mesh: on fake tensors, then on real ones (seeded init) with the step
+    timed.  The counts must be identical, the predicted peak within
+    ``CARD_PEAK_TOL`` of ``max_memory_allocated``, and the median of
+    ``CARD_ITERS`` synchronized steps at or above ``step_time_lb_s``.  The
+    serving cells run once more, real only, at ``attention_impl="pallas"``:
+    the flash (B1) and RMSNorm (B3) kernels carry the step (a fake tensor
+    cannot enter them), held to its own bound: the counter's count of the
+    rest of the step plus each launch's work by :func:`kernel_work`."""
+    from repro_torch.configs.base import SHAPES as T_SHAPES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import roofline_terms
+
+    base = get_config(LLAMA)
+    out = {}
+    for name, batch, layers in CARD_CELLS:
+        shape = dataclasses.replace(T_SHAPES[name], global_batch=batch)
+        cfg = dataclasses.replace(base, n_layers=layers)
+        free_card()
+        fake = run_cell(LLAMA, name, device=dev.type, fake=True, mesh_shape=(1, 1), cfg=cfg,
+                        shape=shape, verbose=False)
+        free_card()
+        real = run_cell(LLAMA, name, device=dev.type, fake=False, mesh_shape=(1, 1), cfg=cfg,
+                        shape=shape, verbose=False, time_iters=CARD_ITERS)
+        for key in ("flops_per_device", "bytes_per_device", "collective_bytes_per_device"):
+            if fake[key] != real[key]:
+                raise AssertionError(f"[dryrun-card] {name}: {key} fake {fake[key]} real {real[key]}")
+        pred = fake["memory"]["argument_size_in_bytes"] + fake["memory"]["temp_size_in_bytes"]
+        peak = real["device_peak_bytes"]
+        lb, ms = real["step_time_lb_s"], real["measured_step_s"]
+        log(f"[dryrun-card] {LLAMA} {name} batch {batch}, {layers} layers: flops "
+            f"{real['flops_per_device']:.6g} bytes {real['bytes_per_device']:.6g} (fake = real); "
+            f"predicted peak {pred / 1e9:.3f} GB, card {peak / 1e9:.3f} GB "
+            f"({(pred - peak) / peak:+.2%}); "
+            f"lb {lb * 1e3:.3f} ms ({real['dominant']}), measured {ms * 1e3:.3f} ms, "
+            f"lb / measured {lb / ms:.4f}")
+        if abs(pred - peak) > CARD_PEAK_TOL * peak:
+            raise AssertionError(f"[dryrun-card] {name}: predicted peak {pred} vs {peak}")
+        if ms < lb:
+            raise AssertionError(f"[dryrun-card] {name}: measured {ms} s under the bound {lb} s")
+        out[name] = {"layers": layers, "lb_s": lb, "measured_s": ms, "pred_bytes": pred,
+                     "peak_bytes": peak, "dominant": real["dominant"]}
+        if shape.kind == "train":
+            log(f"[dryrun-card] {LLAMA} {name}: no pallas run (the kernels are forward-only)")
+            continue
+        free_card()
+        reset_counts()
+        kcfg = dataclasses.replace(cfg, attention_impl="pallas")
+        with kernel_work() as work:
+            kern = run_cell(LLAMA, name, device=dev.type, fake=False, mesh_shape=(1, 1),
+                            cfg=kcfg, shape=shape, verbose=False, time_iters=CARD_ITERS)
+        got = counts()
+        require(got, ("rmsnorm", "flash_attention"), f"[dryrun-card] {name} pallas")
+        # the counted step's launches, once each; the timed steps launch as many
+        for k in ("flash_attention", "rmsnorm"):
+            seen = sum(1 for w in work if w[0] == k)
+            if seen * (1 + CARD_ITERS) != got[k]:
+                raise AssertionError(f"[dryrun-card] {name} pallas: {seen} {k} launches "
+                                     f"counted of {got[k]} in {1 + CARD_ITERS} steps")
+        kbytes, kflops = sum(w[1] for w in work), sum(w[2] for w in work)
+        step = dict(kern, flops_per_device=kern["flops_per_device"] + kflops,
+                    bytes_per_device=kern["bytes_per_device"] + kbytes)
+        terms = roofline_terms(step, kcfg, shape)
+        km, klb = kern["measured_step_s"], terms["step_time_lb_s"]
+        log(f"[dryrun-card] {LLAMA} {name} batch {batch}, {layers} layers pallas: flops "
+            f"{step['flops_per_device']:.6g} bytes {step['bytes_per_device']:.6g} (of which the "
+            f"kernels' launches {kflops:.6g} / {kbytes:.6g}); lb {klb * 1e3:.3f} ms "
+            f"({terms['dominant']}), measured {km * 1e3:.3f} ms, lb / measured {klb / km:.4f}; "
+            f"the plain step's lb / this step {lb / km:.4f} (launches a step: flash "
+            f"{got['flash_attention'] // (1 + CARD_ITERS)}, rmsnorm "
+            f"{got['rmsnorm'] // (1 + CARD_ITERS)})")
+        if km < klb:
+            raise AssertionError(f"[dryrun-card] {name} pallas: measured {km} s under {klb} s")
+        out[name].update(pallas_s=km, pallas_lb_s=klb)
+    free_card()
+    return out
+
 
 
 def phase_time(dev) -> dict:
@@ -4739,6 +5043,11 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     dev = card["dev"]
+    # the dry-run sweep needs no card: its queues start now (see DRYRUN_JOBS)
+    dry_out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, dry_out, True)
+    jobs = start_dryrun(dry_out)
+    atexit.register(stop_dryrun, jobs)
     # the kernels build while the phases that launch none run: the trainer
     # (it refuses the forward-only kernels), placeto and the calibration
     join_build = start_build()
@@ -4756,6 +5065,8 @@ def main() -> int:
         timed(phase_mesh_elastic, mesh_train["llama_bf16"], ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # the kernel checks and the parity runs time nothing: the sweep's
+    # queues go on beside them, then stop before the first timed phase
     errs = timed(phase_check, dev)
     errs.update(timed(phase_check_gg_split, dev))
     errs.update(timed(phase_check_decode, dev))
@@ -4764,38 +5075,44 @@ def main() -> int:
     errs.update(timed(phase_check_gqa7, dev))
     errs.update(timed(phase_check_ssd, dev))
     errs.update(timed(phase_check_rmsnorm, dev))
-    served = timed(phase_serve, dev)
     timed(phase_parity, dev)
     timed(phase_parity_paged, dev)
-    served_paged = timed(phase_serve_paged, dev)
     parity_spec = timed(phase_parity_spec, dev)
-    served_spec = timed(phase_serve_spec, dev)
     parity_router = timed(phase_parity_router, dev)
     parity_router_moe = timed(phase_parity_router_moe, dev)
-    served_router = timed(phase_serve_router, dev)
     timed(phase_parity, dev, MOE)
+    timed(phase_parity, dev, QWEN3)
+    timed(phase_parity, dev, GEMMA, paged=True)
+    timed(phase_parity_gemma2, dev)
+    free_card()
+    parity_ssm = timed(phase_parity_ssm, dev)
+    parity_encdec = timed(phase_parity_encdec, dev)
+    parity_vlm = timed(phase_parity_vlm, dev)
+    free_card()
+    timed(phase_parity_train, dev)
+    free_card()
+    pause_dryrun(jobs)
+    served = timed(phase_serve, dev)
+    served_paged = timed(phase_serve_paged, dev)
+    served_spec = timed(phase_serve_spec, dev)
+    served_router = timed(phase_serve_router, dev)
     served_moe = timed(phase_serve, dev, MOE)
     served_moe_paged = timed(phase_serve_paged, dev, MOE)
-    timed(phase_parity, dev, QWEN3)
     served_qwen3 = timed(phase_serve, dev, QWEN3)
-    timed(phase_parity, dev, GEMMA, paged=True)
     served_gemma = timed(phase_serve, dev, GEMMA)
     served_gemma_paged = timed(phase_serve_paged, dev, GEMMA)
-    timed(phase_parity_gemma2, dev)
     free_card()
     served_gemma2 = timed(phase_serve, dev, GEMMA2)
     served_mamba = timed(phase_serve_ssm, dev, MAMBA)
     served_zamba = timed(phase_serve_ssm, dev, ZAMBA)
-    parity_ssm = timed(phase_parity_ssm, dev)
     timed(phase_trace_ssm, dev)
     timed(phase_parity_spec_ssm, dev)
-    parity_encdec = timed(phase_parity_encdec, dev)
     served_encdec = timed(phase_serve_encdec, dev)
-    parity_vlm = timed(phase_parity_vlm, dev)
     served_vlm = timed(phase_serve_vlm, dev)
     free_card()
-    timed(phase_parity_train, dev)
     times = timed(phase_time, dev)
+    timed(phase_dryrun_card, dev)
+    timed(phase_dryrun, jobs, dry_out)
 
     # the split-KV decode kernel's numbers at each head dim, dense and paged
     clis = {"d64": ("", served["cli"], served_paged["cli"]),
@@ -4895,7 +5212,7 @@ def main() -> int:
             row.update(library=t["library"], paged_launches=served_moe_paged["cli"][name],
                        shapes={c: {key: times[(name, c)][key] for key in (
                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
-                           "host_us", "library_host_us")}
+                           "host_us", "op_host_us", "library_host_us")}
                            for c in ("gate_up_decode", "gate_up_chunk", "down_decode",
                                      "down_chunk")})
         if name == "rmsnorm":

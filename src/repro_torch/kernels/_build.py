@@ -154,6 +154,16 @@ def build_log() -> str:
     return _log
 
 
+def refuse_fakes(what: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a fake tensor (no storage: a dry-run's
+    stand-in): a kernel must never be handed its pointers."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(f"{what}: a fake tensor reached the CUDA kernel (the dry-run "
+                           "counts the plain paths)")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a non-zero cudaError_t."""
     if err != 0:

@@ -161,6 +161,7 @@ def _check_kernel_inputs(what, q, k, v, q_offsets, q_lens) -> None:
     offsets and lengths."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    _build.refuse_fakes(what, q, k, v, q_offsets, q_lens)
     b, _, h, d = q.shape
     kv = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

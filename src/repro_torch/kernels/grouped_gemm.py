@@ -36,8 +36,10 @@ split.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -108,7 +110,7 @@ def _sm_count(device: torch.device) -> int:
     return _sms[device]
 
 
-def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def _plain_loop(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: a loop over the experts with
     the row offsets read on the host, each product in fp32, cast back."""
     m, n = x.shape[0], w.shape[2]
@@ -122,18 +124,121 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tens
     return out
 
 
+def _plain_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    group_sizes: torch.Tensor):
+    """The gradients of :func:`_plain_loop` (``g`` the output's): each
+    expert's ``dx = g·wᵀ`` and ``dw = xᵀ·g`` in fp32, cast back; zeros for
+    rows past the last group and for experts with no rows."""
+    m = x.shape[0]
+    dx = torch.zeros_like(x)
+    dw = torch.zeros_like(w)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), m)
+        if end > start:
+            gf = g[start:end].float()
+            dx[start:end] = (gf @ w[e].float().T).to(x.dtype)
+            dw[e] = (x[start:end].float().T @ gf).to(w.dtype)
+        start = end
+    return dx, dw
+
+
+# The grouped GEMM is one custom op, ``repro_torch::grouped_gemm``, so that
+# the rest of PyTorch can reason about it without running it: its fake
+# implementation gives the output's shape (fake tensors, whose group sizes
+# cannot be read on the host), its FLOP formula counts ``2·M·K·N`` (the
+# dense count XLA gives ``ragged_dot``), and its autograd rule is the plain
+# loop's own gradient.  ``kernel`` picks the eager implementation: the CUDA
+# kernel on a CUDA tensor (``True``), or the plain loop.
+@torch.library.custom_op("repro_torch::grouped_gemm", mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, kernel: bool) -> torch.Tensor:
+    if kernel and x.device.type != "cpu":
+        return _launch(x, w, group_sizes)
+    return _plain_loop(x, w, group_sizes)
+
+
+@_op.register_fake
+def _(x, w, group_sizes, kernel):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::grouped_gemm_backward", mutates_args=())
+def _op_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _plain_backward(g, x, w, group_sizes)
+
+
+@_op_backward.register_fake
+def _(g, x, w, group_sizes):
+    return torch.empty_like(x), torch.empty_like(w)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, group_sizes, _ = inputs
+    ctx.save_for_backward(x, w, group_sizes)
+
+
+def _backward(ctx, g):
+    x, w, group_sizes = ctx.saved_tensors
+    dx, dw = _op_backward(g.contiguous(), x, w, group_sizes)
+    return dx, dw, None, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.grouped_gemm)
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * x_shape[0] * x_shape[1] * w_shape[2]
+
+
+@register_flop_formula(torch.ops.repro_torch.grouped_gemm_backward)
+def _flops_backward(g_shape, x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    return 4 * x_shape[0] * x_shape[1] * w_shape[2]
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the custom op's plain
+    route): a loop over the experts with the row offsets read on the host,
+    each product in fp32, cast back."""
+    return _op(x, w, group_sizes, False)
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """``x [M, K]`` (rows sorted by expert) times ``w [E, K, N]`` per the
     ``[E]`` int32 ``group_sizes``.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel, or raises on any input the kernel does
     not take: float32 or bfloat16 x and w of one type on one card,
     contiguous and 16-byte aligned, K and N multiples of 8, and int32
-    ``group_sizes`` of shape ``[E]`` on the same card."""
+    ``group_sizes`` of shape ``[E]`` on the same card.  A fake tensor gets
+    the output's shape and launches nothing.
+
+    CUDA tensors with no gradient to record and no dispatch mode on (the
+    serving path) launch the kernel directly; the rest go through the
+    custom op, whose fake implementation, FLOP formula and autograd rule
+    they need."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_gemm: unsupported device {x.device}")
+    if x.device.type == "cuda" and not _needs_op(x, w):
+        return _launch(x, w, group_sizes)
+    return _op(x, w, group_sizes, True)
+
+
+def _needs_op(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a call must go through the custom op: a dispatch mode is on
+    (fake tensors, a counter) or autograd records the call."""
+    if torch._C._len_torch_dispatch_stack() > 0:
+        return True
+    return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (:func:`grouped_gemm`'s checks, then one
+    launch, counted)."""
     global launches
-    if x.device.type == "cpu":
-        return grouped_gemm_plain(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gemm: unsupported device {x.device}")
+    _build.refuse_fakes("grouped_gemm", x, w, group_sizes)
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"grouped_gemm kernel takes float32 or bfloat16 x and w of one type, got "

@@ -114,6 +114,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    _build.refuse_fakes("rmsnorm", x, w)
     d = x.shape[-1]
     if x.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, got {x.dtype}")

@@ -126,6 +126,7 @@ def ssd_scan(
         return y, out_state.copy_(final)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    _build.refuse_fakes("ssd_scan", x, dt, A, B, C, init_state, out_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:

@@ -47,14 +47,13 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from repro_torch.core.costmodel import (
     DEFAULT_BATCH_INVARIANT_FRAC,
     calibrate_invariant_frac,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.roofline import ByteCounter
 
 # decode-step working sizes: big enough that byte counts dominate
 # bookkeeping noise, small enough to run instantly on CPU
@@ -64,31 +63,6 @@ N_HEADS = 8
 SEQ = 256          # resident KV / state length a decode step streams
 CONV_K = 4
 SSD_CHUNK = 64
-
-# ops that alias their input and move no data (the dispatcher does not
-# flag every one of them as a view)
-_NO_TRAFFIC = {"aten::_unsafe_view", "aten::alias", "aten::lift_fresh", "aten::detach"}
-
-
-class ByteCounter(TorchDispatchMode):
-    """Sums the bytes of every ATen op's tensor inputs and outputs that
-    runs under it; view ops are skipped."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-        self.ops: list = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not (func.is_view or func._schema.name in _NO_TRAFFIC):
-            tensors = [t for t in tree_flatten((args, kwargs, out))[0]
-                       if isinstance(t, torch.Tensor)]
-            n = sum(t.numel() * t.element_size() for t in tensors)
-            self.bytes += n
-            self.ops.append((func._schema.name, n))
-        return out
-
 
 def _zeros(device, *shape):
     return torch.zeros(shape, dtype=torch.float32, device=device)

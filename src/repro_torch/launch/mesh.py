@@ -61,15 +61,24 @@ class Mesh:
     def group(self, axes) -> Optional[dist.ProcessGroup]:
         """The process group over mesh axes ``axes`` (a name or a tuple of
         names): this rank and its peers along them."""
-        if isinstance(axes, str):
-            axes = (axes,)
-        if len(axes) == 1:
-            return self.device_mesh.get_group(axes[0])
-        return self.device_mesh[tuple(axes)]._flatten().get_group()
+        return group_of(self.device_mesh, (axes,) if isinstance(axes, str) else tuple(axes))
 
     def __repr__(self) -> str:
         kind = "abstract" if self.device_mesh is None else self.device_mesh.device_type
         return f"Mesh({dict(self.shape)}, {kind})"
+
+
+def group_of(device_mesh, axes: Tuple[str, ...]) -> dist.ProcessGroup:
+    """The process group over the named dims of ``device_mesh``.  Several
+    dims are flattened into one sub-mesh, built with every dispatch mode
+    off (the mesh's own bookkeeping tensors are neither fake nor a rank's
+    work)."""
+    if len(axes) == 1:
+        return device_mesh.get_group(axes[0])
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return device_mesh[tuple(axes)]._flatten().get_group()
 
 
 def _debug_layout(n: int, multi_pod: bool) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
@@ -153,7 +162,9 @@ def placements(spec: Sequence, mesh: Mesh):
     with entry ``a`` is ``Shard(i)`` on mesh dim ``a``; a tuple of axes
     shards dim ``i`` over each of them, major first, which is DTensor's
     order when the axes come in mesh order (any other order raises).
-    Mesh dims that no entry names are ``Replicate()``."""
+    Mesh dims that no entry names are ``Replicate()``, and so are those of
+    size 1 (a shard over one rank is the whole tensor; DTensor cannot merge
+    or split a dim "sharded" over one rank)."""
     from torch.distributed.tensor import Replicate, Shard
 
     out = [Replicate()] * len(mesh.axis_names)
@@ -167,5 +178,33 @@ def placements(spec: Sequence, mesh: Mesh):
         for m in dims:
             if out[m] != Replicate():
                 raise ValueError(f"mesh axis {mesh.axis_names[m]!r} shards two dims of {spec!r}")
-            out[m] = Shard(i)
+            if mesh.shape[mesh.axis_names[m]] > 1:
+                out[m] = Shard(i)
     return out
+
+
+def local_shape_and_offset(shape: Sequence[int], device_mesh, pls):
+    """This rank's shard of a tensor of global ``shape`` placed by ``pls``
+    on ``device_mesh``: (its shape, where it starts), by DTensor's rule
+    (``torch.chunk`` along each sharded dim, one mesh dim after another),
+    in plain integers — nothing runs on a tensor."""
+    size, start = list(shape), [0] * len(shape)
+    coord = device_mesh.get_coordinate()
+    for m, p in enumerate(pls):
+        if not p.is_shard():
+            continue
+        d, n = p.dim, device_mesh.size(m)
+        chunk = -(-size[d] // n)
+        begin = min(coord[m] * chunk, size[d])
+        start[d] += begin
+        size[d] = max(0, min(chunk, size[d] - begin))
+    return tuple(size), tuple(start)
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))

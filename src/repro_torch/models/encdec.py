@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.parallel.context import is_dtensor, shard_hint
+from repro_torch.parallel.sharding import cache_on_mesh
 from repro_torch.parallel.vocab import embed_lookup
 from .layers import Params, mlp, multihead_attention, rmsnorm, uses_kernels
 from .transformer import check_trainable, remat as remat_fn, torch_dtype
@@ -164,10 +165,16 @@ def train_forward(params, batch, cfg: ModelConfig):
 
 def init_self_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Dense decoder self-attention cache, zeros, ``[L, B, max_len, KV, hd]``
-    on ``device`` (default: the first card)."""
+    on ``device`` (default: the first card); under a parallel context on a
+    real mesh, DTensors laid out by ``cache_pspec_tree``."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    device = resolve_device(device)
     dt = torch_dtype(cfg)
+    meta = {"k": torch.empty(shape, dtype=dt, device="meta"),
+            "v": torch.empty(shape, dtype=dt, device="meta")}
+    on_mesh = cache_on_mesh(cfg, meta, batch, max_len)
+    if on_mesh is not None:
+        return on_mesh
+    device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 

@@ -23,10 +23,11 @@ Unlike the reference, the KV cache — dense rows and page pools alike — is
 written **in place**: the returned cache holds the same tensors that were
 passed in.
 
-On a mesh (DTensor activations under a parallel context; the training
-forward, no cache) the projections and the MLP are DTensor products
-steered by the reference's shard hints, and RoPE with the plain core runs
-on each rank's batch rows and heads (``local_map``).
+On a mesh (DTensor activations under a parallel context) the projections
+and the MLP are DTensor products steered by the reference's shard hints,
+and RoPE with the plain core runs on each rank's batch rows and heads
+(its local shards); a dense KV cache on the mesh is written and read the same
+way, each rank on its slice of it.
 """
 
 from __future__ import annotations
@@ -55,7 +56,14 @@ def rmsnorm(
 ) -> torch.Tensor:
     """Offset-form RMSNorm ``x·rsqrt(mean(x²)+eps)·(1+w)`` in fp32, cast
     back.  ``kernel=True`` goes through the CUDA kernel's wrapper (which
-    runs the same plain math on a CPU tensor)."""
+    runs the same plain math on a CPU tensor), on a DTensor on each rank's
+    rows."""
+    if kernel and is_dtensor(x):
+        # on a mesh: the kernel on each rank's rows, whole along the norm
+        if any(p.is_shard(x.ndim - 1) for p in x.placements):
+            raise NotImplementedError("the RMSNorm kernel takes rows whole on each rank")
+        w = w.full_tensor() if is_dtensor(w) else w
+        return _on_shards(lambda xl: rms_kernel.rmsnorm(xl, w, eps), (x,), like=x)
     if kernel:
         return rms_kernel.rmsnorm(x, w, eps)
     return rms_kernel.rmsnorm_plain(x, w, eps)
@@ -127,10 +135,12 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _chunked_attention(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, chunk):
+def _chunked_attention(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, chunk,
+                       with_lse=False):
     """Online-softmax attention over KV chunks (the flash algorithm).
 
-    q: [B,Sq,G,R,D] (GQA-grouped), k/v: [B,Sk,G,D]."""
+    q: [B,Sq,G,R,D] (GQA-grouped), k/v: [B,Sk,G,D].  ``with_lse``: also
+    each row's log-sum-exp of its scores, ``[B, Sq, G, R]`` fp32."""
     b, sq, g, r, d = q.shape
     sk = k.shape[1]
     qf = q.float()
@@ -152,7 +162,10 @@ def _chunked_attention(q, k, v, q_pos, k_pos, *, causal, window, cap, scale, chu
         acc = acc * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", pexp, vb)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).to(q.dtype)
+    if with_lse:
+        return out, (m + torch.log(torch.clamp(l, min=1e-30))).permute(0, 3, 1, 2)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -275,37 +288,191 @@ def _plain_core(q, k, v, q_pos, k_pos1d, cfg: ModelConfig, *, causal, window, sc
 
 def _attention_on_mesh(q, k, v, positions, cfg: ModelConfig, *, cross, causal, window, scale):
     """Attention of DTensors q ``[B, Sq, H, D]`` and k/v ``[B, Sk, KV, D]``
-    (no cache): RoPE and the plain core run on each rank's local batch rows
-    and heads (``local_map``, PyTorch's ``shard_map``), so the masks, built
+    (no cache): RoPE and the core (the flash kernel for a kernel config,
+    else the plain one) run on each rank's local batch rows and heads
+    (:func:`_on_shards`, PyTorch's ``shard_map``), so the masks, built
     from ``arange``, never meet a DTensor.  k and v are laid out like q's
     heads (``kv_heads``), which keeps each rank's query heads beside their
     KV group; that needs the KV head count to divide over the head axis."""
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Replicate
 
-    if cfg.n_kv_heads % _head_shards(q) != 0:
-        raise NotImplementedError(
-            f"{cfg.n_kv_heads} KV heads do not divide over {_head_shards(q)} head shards")
-    k = shard_hint(k, "batch", None, "kv_heads", None)
-    v = shard_hint(v, "batch", None, "kv_heads", None)
+    kv_of = None
+    if cfg.n_kv_heads % _head_shards(q) == 0:
+        k = shard_hint(k, "batch", None, "kv_heads", None)
+        v = shard_hint(v, "batch", None, "kv_heads", None)
+    else:
+        # fewer KV heads than head shards: every rank of the head axis holds
+        # them all and takes those of its own query heads
+        whole = [Replicate() if p.is_shard(2) else p for p in q.placements]
+        k = k.redistribute(q.device_mesh, whole)
+        v = v.redistribute(q.device_mesh, whole)
+        h0 = _local_offset(q)[2]
+        kv_of = lambda n, dev: (h0 + torch.arange(n, device=dev)) // (cfg.n_heads // cfg.n_kv_heads)  # noqa: E731
     if not is_dtensor(positions):
         positions = like_batch(positions, q, batch_dim=positions.ndim - 2)
     if causal is None:
         causal = not cross
 
     def core(q, k, v, positions):
+        if kv_of is not None:
+            idx = kv_of(q.shape[2], q.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
         if cross:
             q_pos = positions[0] if positions.ndim == 2 else positions[0][0]
             k_pos1d = torch.arange(k.shape[1], device=q.device)
         else:
             q, k, q_pos = _rope_qk(q, k, positions, cfg, False)
             k_pos1d = q_pos
+        if uses_kernels(cfg):
+            offs = q_pos[0].expand(q.shape[0]).to(torch.int32).contiguous()
+            return fa_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             offs, None, scale=scale, causal=causal,
+                                             window=window, softcap=cfg.attn_softcap)
         return _plain_core(q, k, v, q_pos, k_pos1d, cfg, causal=causal, window=window,
                            scale=scale)
 
-    args = (q, k, v, positions)
-    fn = local_map(core, out_placements=list(q.placements),
-                   in_placements=tuple(a.placements for a in args), device_mesh=q.device_mesh)
-    return fn(*args)
+    return _on_shards(core, (q, k, v, positions), like=q)
+
+
+def _on_shards(fn, args, *, like, extra=()):
+    """``fn`` on the local shards of DTensors ``args`` (and the plain
+    ``extra``), PyTorch's ``local_map`` with the result laid out and
+    shaped like DTensor ``like`` — also where a dim is cut unevenly, which
+    ``local_map`` cannot shape.  Gradients flow back to each argument in
+    its own layout."""
+    from torch.distributed.tensor import DTensor
+
+    out = fn(*(a.to_local() for a in args), *extra)
+    # the global strides keep the local tensor's order of dims
+    stride, step = [0] * out.ndim, 1
+    for d in sorted(range(out.ndim), key=out.stride):
+        stride[d] = step
+        step *= like.shape[d]
+    return DTensor.from_local(out, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=tuple(stride))
+
+
+def _local_offset(x) -> Tuple[int, ...]:
+    """Where this rank's shard of DTensor ``x`` starts in the global tensor."""
+    from repro_torch.launch.mesh import local_shape_and_offset
+
+    return local_shape_and_offset(x.shape, x.device_mesh, x.placements)[1]
+
+
+def _write_kv_slice(cache: torch.Tensor, new: torch.Tensor, cache_pos, off: int) -> None:
+    """Write ``new [B, Sq, KV, D]`` at global position ``cache_pos`` into
+    ``cache [B, L, KV, D]``, a slice of the sequence starting at ``off``:
+    only the tokens that fall in it land, in place."""
+    sq, length = new.shape[1], cache.shape[1]
+    dev = cache.device
+    new = new.to(cache.dtype)
+    cp = torch.as_tensor(cache_pos, device=dev).to(torch.int64).reshape(())
+    if sq == 1:
+        at = cp - off
+        keep = (at >= 0) & (at < length)
+        i = torch.clamp(at, 0, length - 1).reshape(1)
+        cache.index_copy_(1, i, torch.where(keep, new, cache.index_select(1, i)))
+        return
+    src = off + torch.arange(length, device=dev) - cp          # token of each slot
+    inside = ((src >= 0) & (src < sq))[None, :, None, None]
+    got = new.index_select(1, torch.clamp(src, 0, sq - 1))
+    cache.copy_(torch.where(inside, got, cache))
+
+
+def _cached_attention_on_mesh(q, k, v, positions, cfg: ModelConfig, kv_cache, cache_pos, *,
+                              window, scale):
+    """Self-attention of DTensors q ``[B, Sq, H, D]`` and the new k/v
+    ``[B, Sq, KV, D]`` against a dense KV cache of DTensors ``[B, L, KV,
+    D]`` laid out by ``cache_pspec_tree``, written in place (a scalar
+    ``cache_pos``).  q, k and v take the cache's layout of the batch and
+    the heads (the query heads beside their KV group); each rank writes the
+    tokens that fall in its slice of the cache and attends over that slice.
+    Where the cache's sequence is cut over mesh dims, each rank's partial
+    result and log-sum-exp are merged over them (the flash merge: a group
+    max, then group sums), so every rank of those dims ends with the whole
+    result.  A kernel config runs the flash kernel on each rank's slice of
+    a cache that is whole along the sequence."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch.mesh import group_of
+    from repro_torch.parallel import collectives
+
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    if "table" in kv_cache or not is_dtensor(kc):
+        raise NotImplementedError("attention on a mesh takes a dense DTensor KV cache")
+    mesh, cpl = kc.device_mesh, tuple(kc.placements)
+    seq_dims = [m for m, p in enumerate(cpl) if p.is_shard(1)]
+    pl = [p if (p.is_shard(0) or p.is_shard(2)) else Replicate() for p in cpl]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    if not is_dtensor(positions):
+        positions = like_batch(positions, q, batch_dim=positions.ndim - 2)
+    off = _local_offset(kc)[1]
+    group = group_of(mesh, tuple(mesh.mesh_dim_names[m] for m in seq_dims)) if seq_dims else None
+    cp = torch.as_tensor(cache_pos)
+    if cp.ndim != 0:
+        raise NotImplementedError("attention on a mesh takes one cache_pos for every row")
+
+    def core(q, k, v, kc, vc, positions, cp):
+        q, k, q_pos = _rope_qk(q, k, positions, cfg, False)
+        _write_kv_slice(kc, k, cp, off)
+        _write_kv_slice(vc, v, cp, off)
+        k_pos = off + torch.arange(kc.shape[1], device=q.device)
+        if uses_kernels(cfg):
+            if group is not None:
+                raise NotImplementedError("the flash kernel takes a cache whole along the "
+                                          "sequence on each rank")
+            offs = q_pos[0].expand(q.shape[0]).to(torch.int32).contiguous()
+            return fa_kernel.flash_attention(q.contiguous(), kc, vc, offs, None, scale=scale,
+                                             causal=True, window=window,
+                                             softcap=cfg.attn_softcap)
+        if group is None:
+            return _plain_core(q, kc, vc, q_pos, k_pos, cfg, causal=True, window=window,
+                               scale=scale)
+        b, sq, h, hd = q.shape
+        g = kc.shape[2]
+        out, lse = _chunked_attention(
+            q.reshape(b, sq, g, h // g, hd), kc, vc, q_pos, k_pos, causal=True, window=window,
+            cap=cfg.attn_softcap, scale=scale, chunk=min(cfg.attn_chunk, kc.shape[1]),
+            with_lse=True)
+        top = collectives.all_max(lse, group)
+        w = torch.exp(lse - top)
+        num = collectives.all_reduce(out.float() * w[..., None], group)
+        den = collectives.all_reduce(w, group)
+        return (num / den[..., None]).to(q.dtype).reshape(b, sq, h, hd)
+
+    return _on_shards(core, (q, k, v, kc, vc, positions), like=q,
+                      extra=(cp.to(device=q.device, dtype=torch.int32),))
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``[B, S, n·hd]`` → ``[B, S, n, hd]``.  A DTensor whose last dim is
+    cut over more parts than ``n`` divides into is made whole along it
+    first (DTensor cannot split a dim cut between heads)."""
+    b, s = t.shape[0], t.shape[1]
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        dims = [m for m, p in enumerate(t.placements) if p.is_shard(t.ndim - 1)]
+        parts = math.prod(t.device_mesh.size(m) for m in dims)
+        if dims and n % parts:
+            t = t.redistribute(t.device_mesh, [Replicate() if m in dims else p
+                                               for m, p in enumerate(t.placements)])
+    return t.reshape(b, s, n, hd)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``[B, S, n, hd]`` → ``[B, S, n·hd]`` for a DTensor; heads cut
+    unevenly over the mesh (``n`` not a multiple of the parts) are made
+    whole first: their columns would not be DTensor's even cut of the
+    merged dim."""
+    from torch.distributed.tensor import Replicate
+
+    b, s, n, hd = t.shape
+    dims = [m for m, p in enumerate(t.placements) if p.is_shard(2)]
+    if dims and n % math.prod(t.device_mesh.size(m) for m in dims):
+        t = t.redistribute(t.device_mesh, [Replicate() if m in dims else p
+                                           for m, p in enumerate(t.placements)])
+    return t.reshape(b, s, n * hd)
 
 
 def _head_shards(q) -> int:
@@ -345,10 +512,10 @@ def multihead_attention(
     b, sq, _ = x.shape
     kernels = uses_kernels(cfg)
     ragged = isinstance(cache_pos, torch.Tensor) and cache_pos.ndim > 0
-    q = (x @ p["wq"]).reshape(b, sq, cfg.n_heads, hd)
+    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
     if cross_kv is None:
-        k = (x @ p["wk"]).reshape(b, sq, cfg.n_kv_heads, hd)
-        v = (x @ p["wv"]).reshape(b, sq, cfg.n_kv_heads, hd)
+        k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+        v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
     else:
         k, v = cross_kv
 
@@ -362,14 +529,18 @@ def multihead_attention(
     if window is not None and window <= 0:
         window = None
     if is_dtensor(q):
-        # on a mesh (the training forward: no cache): the core runs on each
-        # rank's batch rows and heads; the reference's hint (layers.py:325)
+        # on a mesh: the core runs on each rank's batch rows and heads, and
+        # on its slice of a cache; the reference's hint (layers.py:325)
         q = shard_hint(q, "batch", None, "heads", None)
-        if kv_cache is not None or q_lens is not None:
-            raise NotImplementedError("attention on a mesh takes no cache and no q_lens")
-        out = _attention_on_mesh(q, k, v, positions, cfg, cross=cross_kv is not None,
-                                 causal=causal, window=window, scale=scale)
-        out = out.reshape(b, sq, cfg.n_heads * hd) @ p["wo"]
+        if q_lens is not None:
+            raise NotImplementedError("attention on a mesh takes no q_lens")
+        if kv_cache is not None and cross_kv is None:
+            out = _cached_attention_on_mesh(q, k, v, positions, cfg, kv_cache, cache_pos,
+                                            window=window, scale=scale)
+        else:
+            out = _attention_on_mesh(q, k, v, positions, cfg, cross=cross_kv is not None,
+                                     causal=causal, window=window, scale=scale)
+        out = _merge_heads(out) @ p["wo"]
         return shard_hint(out, "batch", None, "embed"), None
 
     # RoPE on self-attention only (seamless's cross K/V carry none)

@@ -226,5 +226,7 @@ def store_state(stack: Dict[str, torch.Tensor], i: int, new: Dict[str, torch.Ten
     leaf the scan already wrote there is left as it is)."""
     for k in STATE_KEYS:
         dst = stack[k][i]
-        if new[k].data_ptr() != dst.data_ptr() or new[k].shape != dst.shape:
-            dst.copy_(new[k])
+        src = new[k]
+        if not (src.untyped_storage()._cdata == dst.untyped_storage()._cdata
+                and src.storage_offset() == dst.storage_offset() and src.shape == dst.shape):
+            dst.copy_(src)

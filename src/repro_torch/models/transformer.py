@@ -48,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.parallel.context import is_dtensor, shard_hint
+from repro_torch.parallel.context import current_context, is_dtensor, parallel_context, shard_hint
+from repro_torch.parallel.sharding import cache_on_mesh
 from repro_torch.parallel.vocab import embed_lookup
 from .layers import Params, uses_kernels, mlp, multihead_attention, rmsnorm, softcap
 from .moe import moe_apply
@@ -148,9 +149,17 @@ def _zeros_kv(shape, dt, device) -> Dict[str, torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Params:
     """Dense cache, zeros, on ``device`` (default: the first card): KV rows,
-    the SSM family's recurrent state, or the hybrid's both."""
+    the SSM family's recurrent state, or the hybrid's both.  Under a
+    parallel context on a real mesh: DTensors laid out by
+    ``cache_pspec_tree``, each rank holding its shard."""
     check_family(cfg)
-    device = resolve_device(device)
+    on_mesh = cache_on_mesh(cfg, _dense_cache(cfg, batch, max_len, "meta"), batch, max_len)
+    if on_mesh is not None:
+        return on_mesh
+    return _dense_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def _dense_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
     dt = torch_dtype(cfg)
     kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     if cfg.family == "ssm":
@@ -266,8 +275,11 @@ def _mamba_layer(layer_p, x, cfg, stack, i, cont, q_lens):
     (zero state).  The new state is written into ``stack`` in place (the
     scan writes its final state straight into the layer's slice)."""
     kernels = uses_kernels(cfg)
+    h = rmsnorm(x, layer_p["ln"], kernel=kernels)
+    if is_dtensor(h):
+        return x + _mamba_on_mesh(layer_p["mamba"], h, cfg, stack=stack, i=i, cont=cont)
     out, new_state = mamba2_block(
-        layer_p["mamba"], rmsnorm(x, layer_p["ln"], kernel=kernels), cfg,
+        layer_p["mamba"], h, cfg,
         state=layer_state(stack, i) if cont else None,
         seq_lens=q_lens if cont else None, kernel=kernels, ssm_out=stack["ssm"][i],
     )
@@ -373,25 +385,63 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def remat(fn, on: bool):
     """``fn``, recomputed in the backward pass when ``on`` (a block's
-    activations are not kept for backward)."""
+    activations are not kept for backward).  The recomputation runs under
+    the parallel context of the forward pass: the backward of CUDA tensors
+    runs on autograd's device thread, which the context (thread-local)
+    does not reach."""
     if not on:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def run(*args):
+        ctx = current_context()
+
+        def body(*a):
+            if ctx is None:
+                return fn(*a)
+            with parallel_context(ctx):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False)
+
+    return run
 
 
-def _mamba_on_mesh(p: Params, x, cfg: ModelConfig):
-    """A Mamba2 block of the training forward on a mesh: whole on each
-    rank's batch rows.  Its weights (TP-sharded at rest where the rules say
-    so) are gathered for it, and their gradients are partial over the mesh
-    dims that split the batch; the output takes ``x``'s layout."""
+def _mamba_on_mesh(p: Params, x, cfg: ModelConfig, *, stack=None, i: int = 0,
+                   cont: bool = False):
+    """A Mamba2 block on a mesh: whole on each rank's batch rows.  Its
+    weights (TP-sharded at rest where the rules say so) are gathered for
+    it, and their gradients are partial over the mesh dims that split the
+    batch; the output takes ``x``'s layout.  With a ``stack`` (a state
+    cache of DTensors ``[L, B, ...]``) layer ``i``'s state is read
+    (``cont``: a continuation) and written in place on the rows of ``x``
+    this rank holds; a state whole over a mesh dim that cuts ``x``'s batch
+    (a batch the data axis does not divide: ``cache_pspec_tree`` keeps it
+    whole, the ``batch`` rule still cuts the activations) is read and
+    written at those rows."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.launch.mesh import local_shape_and_offset
 
     mesh = x.device_mesh
     whole = [Replicate()] * mesh.ndim
     grad = [Partial() if pl.is_shard(0) else Replicate() for pl in x.placements]
     local = {k: t.redistribute(mesh, whole).to_local(grad_placements=grad) for k, t in p.items()}
-    out, _ = mamba2_block(local, x.to_local(), cfg)
-    return DTensor.from_local(out, mesh, x.placements, run_check=False)
+    kernel = uses_kernels(cfg)
+    if stack is None:
+        out, _ = mamba2_block(local, x.to_local(), cfg, kernel=kernel)
+    else:
+        xl = x.to_local()
+        row0 = local_shape_and_offset(x.shape, mesh, x.placements)[1][0]
+        mine = {}
+        for k, t in stack.items():
+            at = row0 - local_shape_and_offset(t.shape, t.device_mesh, t.placements)[1][1]
+            mine[k] = t.to_local()[:, at:at + xl.shape[0]]
+        out, new_state = mamba2_block(
+            local, xl, cfg, state=layer_state(mine, i) if cont else None,
+            kernel=kernel, ssm_out=mine["ssm"][i])
+        store_state(mine, i, new_state)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def train_forward(params, batch, cfg: ModelConfig):

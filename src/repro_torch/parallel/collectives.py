@@ -18,7 +18,10 @@ gradient on each of those ranks.  So:
 
 Every collective runs on ``torch.distributed`` in the caller's process
 group.  Inside ``with log_collectives() as log:`` each call's count,
-bytes and host time are added to ``log`` (``chip_smoke.py`` reads them).
+bytes and host time are added to ``log`` (``chip_smoke.py`` reads them);
+the bytes are an all-gather's gathered result and, for the other kinds,
+the input (a reduce-scatter's whole input, not the shard it returns: the
+dry-run's counter, ``launch/roofline.py``, counts result bytes).
 
 DTensor runs its own redistributions through PyTorch's *functional*
 collectives (``_c10d_functional``).  With ``gloo`` on CUDA tensors (ranks

@@ -224,6 +224,7 @@ def moe_ep(
         y_tok = collectives.all_gather(y_tok, 0, tp_group, reduce_grad=False)
     aux = collectives.mean(aux, mesh.group(tuple(sorted(splits_tokens, key=mesh.axis_names.index))))
     y_out = DTensor.from_local(y_tok.reshape(b_loc, s, d).to(xl.dtype), dm,
-                               placements(x_spec, mesh), run_check=False)
+                               placements(x_spec, mesh), run_check=False, shape=x.shape,
+                               stride=x.stride())
     aux_out = DTensor.from_local(aux, dm, [Replicate()] * len(mesh.axis_names), run_check=False)
     return y_out, aux_out

@@ -262,6 +262,28 @@ def cache_pspec_tree(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, cache_sha
     return tree_map_with_path(one, cache_shape)
 
 
+def cache_on_mesh(cfg: ModelConfig, cache, global_batch: int, max_len: int):
+    """Zeros shaped like ``cache`` (a cache tree; any device, ``meta``
+    included) as DTensors on the running context's mesh, laid out by
+    :func:`cache_pspec_tree` for a global batch of ``global_batch`` and
+    ``max_len`` positions, each rank allocating its shard only; ``None``
+    outside a context on a real mesh."""
+    from torch.distributed.tensor import zeros as dzeros
+
+    from repro_torch.parallel.context import current_context
+
+    ctx = current_context()
+    if ctx is None or ctx.mesh is None or ctx.mesh.device_mesh is None:
+        return None
+    mesh = ctx.mesh
+    shape = ShapeConfig("cache", seq_len=max_len, global_batch=global_batch, kind="decode")
+    specs = cache_pspec_tree(cfg, shape, mesh, cache)
+    return tree_map_with_path(
+        lambda path, x: dzeros(tuple(x.shape), dtype=x.dtype, device_mesh=mesh.device_mesh,
+                               placements=placements(_spec_at(specs, path), mesh)),
+        cache)
+
+
 def logical_rules(mesh: Mesh) -> Dict[str, MeshAxes]:
     from repro_torch.parallel.context import default_rules
 

@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.launch.mesh import contiguous_strides
+
 from . import collectives
 from .context import like_batch
 
@@ -70,7 +72,9 @@ def embed_lookup(embed, tokens) -> "torch.Tensor":
         x = table[idx.clamp(0, rows - 1)]
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
         x = collectives.all_reduce(x, mesh.get_group(m))
-    return DTensor.from_local(x, mesh, out_pl, run_check=False)
+    shape = tuple(tokens.shape) + (embed.shape[1],)
+    return DTensor.from_local(x, mesh, out_pl, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
 
 
 def cross_entropy_parts(logits, labels) -> Tuple["torch.Tensor", ...]:
@@ -112,3 +116,32 @@ def cross_entropy_parts(logits, labels) -> Tuple["torch.Tensor", ...]:
     # the batch, whole (replicated) over the others
     out_pl = [Partial() if p != Replicate() else Replicate() for p in lab_pl]
     return tuple(DTensor.from_local(t, mesh, out_pl, run_check=False) for t in parts)
+
+
+def greedy_tokens(logits) -> "torch.Tensor":
+    """``argmax`` over the last dim (the vocab) of DTensor ``logits``
+    ``[..., V]``, int32: each rank's best column of its vocab shard, then
+    the group's best (the first index among equal maxima, as
+    ``torch.argmax``).  The result takes the logits' batch placements,
+    whole over the vocab's mesh dims.  DTensor's own rule reads shard
+    offsets on the host, which a fake tensor cannot give."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = logits.device_mesh
+    vdims = _vocab_dims(logits.placements, logits.ndim - 1)
+    if len(vdims) > 1:
+        raise NotImplementedError("logits sharded over more than one mesh dim on the vocab")
+    x = logits.to_local()
+    best, idx = x.max(dim=-1)
+    if vdims:
+        m = vdims[0]
+        group = mesh.get_group(m)
+        idx = idx + mesh.get_local_rank(m) * -(-logits.shape[-1] // mesh.size(m))
+        top = collectives.all_max(best.float(), group)
+        # the smallest index holding the max: a max of the negated indices
+        miss = torch.full_like(idx, -(1 << 62))
+        idx = -collectives.all_max(torch.where(best.float() == top, -idx, miss), group)
+    out_pl = [Replicate() if m in vdims else p for m, p in enumerate(logits.placements)]
+    shape = logits.shape[:-1]
+    return DTensor.from_local(idx.to(torch.int32), mesh, out_pl, run_check=False, shape=shape,
+                              stride=contiguous_strides(shape))

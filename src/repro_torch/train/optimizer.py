@@ -47,20 +47,25 @@ def init_opt_state(params, *, quant8: bool = False, mesh=None) -> Dict[str, Any]
     tensor lives on its param's device.  With a ``mesh`` (DTensor params)
     the fp32 moments are made in their ZeRO-1 layout (:func:`_zero1_spec`),
     each rank allocating its shard only; the step counter stays a plain
-    0-dim tensor on every rank."""
+    0-dim tensor on every rank.  8-bit moments on a mesh keep ``q`` and
+    ``s`` each in the ZeRO-1 layout of its own shape, as the reference's
+    ``zero1_shardings`` lays out every leaf of the state."""
     some = leaves(params)[0]
     step = torch.zeros((), dtype=torch.int32, device=some.device)
     if mesh is not None:
-        if quant8:
-            raise NotImplementedError("8-bit moments on a mesh")
         from torch.distributed.tensor import zeros as dzeros
 
-        def zero1(p):
-            pl = placements(_zero1_spec(tuple(p.shape), mesh), mesh)
-            return dzeros(tuple(p.shape), dtype=torch.float32, device_mesh=mesh.device_mesh,
-                          placements=pl)
+        def zero1(shape, dtype=torch.float32):
+            pl = placements(_zero1_spec(tuple(shape), mesh), mesh)
+            return dzeros(tuple(shape), dtype=dtype, device_mesh=mesh.device_mesh, placements=pl)
 
-        return {"m": tree_map(zero1, params), "v": tree_map(zero1, params), "step": step}
+        def moment(p):
+            if not quant8:
+                return zero1(p.shape)
+            # q and s each in the ZeRO-1 layout of its own shape
+            return {"q": zero1(p.shape, torch.int8), "s": zero1(_scale_shape(p), torch.float32)}
+
+        return {"m": tree_map(moment, params), "v": tree_map(moment, params), "step": step}
     if not quant8:
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -68,13 +73,17 @@ def init_opt_state(params, *, quant8: bool = False, mesh=None) -> Dict[str, Any]
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": step}
 
     def qzeros(p):
-        scale_shape = tuple(p.shape[:-1]) + (1,) if p.ndim >= 1 else (1,)
         return {
             "q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-            "s": torch.zeros(scale_shape, dtype=torch.float32, device=p.device),
+            "s": torch.zeros(_scale_shape(p), dtype=torch.float32, device=p.device),
         }
 
     return {"m": tree_map(qzeros, params), "v": tree_map(qzeros, params), "step": step}
+
+
+def _scale_shape(p) -> Tuple[int, ...]:
+    """An 8-bit moment's per-row scales: one for each row of the last dim."""
+    return tuple(p.shape[:-1]) + (1,) if p.ndim >= 1 else (1,)
 
 
 def is_quant_state(state) -> bool:
@@ -177,10 +186,28 @@ def adamw_update(
 
 
 def _like(x, ref):
-    """``x`` in ``ref``'s DTensor layout (a no-op for plain tensors)."""
+    """``x`` in ``ref``'s DTensor layout (a no-op for plain tensors), its
+    shard in storage of its own."""
     if not is_dtensor(ref) or tuple(x.placements) == tuple(ref.placements):
         return x
-    return x.redistribute(ref.device_mesh, ref.placements)
+    return _compact(x.redistribute(ref.device_mesh, ref.placements))
+
+
+def _compact(x):
+    """DTensor ``x`` with a shard that owns its storage.  A redistribution
+    may hand back a slice of the buffer it gathered (torch 2.11 does, from
+    one shard layout to another); kept as a new param or moment, the slice
+    would keep the whole buffer alive (16× the shard on a 16-way axis)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import contiguous_strides
+
+    local = x.to_local()
+    if local.untyped_storage().nbytes() <= local.numel() * local.element_size():
+        return x
+    return DTensor.from_local(local.clone(memory_format=torch.contiguous_format), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=contiguous_strides(x.shape))
 
 
 # --------------------------------------------------------------------------

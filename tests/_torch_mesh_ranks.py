@@ -5,6 +5,8 @@ Rank 0 hands back whole (``full_tensor``) results; the others ``None``."""
 
 from __future__ import annotations
 
+import collections
+import contextlib
 from dataclasses import replace
 
 import torch
@@ -62,6 +64,120 @@ def train_steps(rank, world, cases):
                     "grad_norm": float(m["grad_norm"]), "params": _whole(p2),
                     "m": _whole(o2["m"]), "v": _whole(o2["v"])})
     return out if rank == 0 else None
+
+
+def quant8_steps(rank, world, arch, cfg_kw, init_np, batches):
+    """Sharded steps on the debug mesh with 8-bit moments, one a batch of
+    ``batches``: each step's loss and grad norm, the whole params after
+    the first step, and the whole 8-bit moments (``q`` and the row scales
+    ``s``) after the last."""
+    b = batches[0]["labels"].shape[0]
+    cfg, mesh, ctx, params = _setup(arch, cfg_kw, init_np, b, world)
+    step = make_train_step(build_model(cfg), AdamWConfig(**OPT))
+    opt = init_opt_state(params, quant8=True, mesh=mesh)
+    out = {"losses": [], "grad_norms": []}
+    with parallel_context(ctx):
+        for batch in batches:
+            params, opt, m = step(params, opt, batch)
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out.setdefault("params", _whole(params))
+    out.update(m=_whole(opt["m"]), v=_whole(opt["v"]))
+    return out if rank == 0 else None
+
+
+def serve_steps(rank, world, cases):
+    """For each ``(arch, cfg_kw, init, batch, mesh_shape, steps, stepwise)``
+    of ``cases``: the prompt prefilled on a mesh of ``mesh_shape`` (its
+    ``make_context``, the cache in ``cache_pspec_tree``'s layout, room for
+    ``steps`` more tokens) — or, ``stepwise``, fed one token a decode step
+    into a cache from ``init_cache`` —, then ``steps`` decode steps, each
+    fed the greedy token of the one before (``vocab.greedy_tokens``).  Rank
+    0 hands back the whole logits of the prompt's last position and of
+    each step, the tokens, and the whole cache at the end."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.parallel.sharding import batch_pspecs
+    from repro_torch.parallel.vocab import greedy_tokens
+
+    out = []
+    for arch, cfg_kw, init_np, batch, mesh_shape, steps, stepwise in cases:
+        cfg = replace(get_config(arch).smoke(), **cfg_kw)
+        b, s = batch["tokens"].shape
+        mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
+        ctx = make_context(mesh, cfg, b)
+        params = param_shardings(cfg, mesh, params_from_jax(init_np, CPU),
+                                 pure_dp=pure_dp_active(cfg, mesh, b))
+        specs = batch_pspecs(cfg, ShapeConfig("serve", seq_len=s, global_batch=b,
+                                              kind="prefill"), mesh)
+        model = build_model(cfg)
+        rec = {"layout": str(mesh), "logits": [], "tokens": []}
+        with torch.no_grad(), parallel_context(ctx):
+            prompt = {k: distribute(torch.as_tensor(v), mesh, specs[k]) for k, v in batch.items()}
+            if stepwise:
+                caches = model.init_cache(b, s + steps)
+                for t in range(s):
+                    one = {"tokens": distribute(torch.as_tensor(batch["tokens"][:, t:t + 1]),
+                                                mesh, specs["tokens"])}
+                    logits, caches = model.decode_step(params, one, caches,
+                                                       torch.tensor(t, dtype=torch.int32))
+            else:
+                logits, caches = model.prefill(params, prompt, s + steps)
+            for t in range(steps):
+                rec["logits"].append(logits.full_tensor().numpy())
+                tok = greedy_tokens(logits).full_tensor()
+                rec["tokens"].append(tok.numpy())
+                nxt = {"tokens": distribute(tok.reshape(b, 1), mesh, specs["tokens"])}
+                logits, caches = model.decode_step(params, nxt, caches,
+                                                   torch.tensor(s + t, dtype=torch.int32))
+            rec["logits"].append(logits.full_tensor().numpy())
+            rec["cache"] = _whole(caches)
+            rec["cache_layout"] = {str(k): str(getattr(v, "placements", None)) for k, v in
+                                   _first_leaves(caches).items()}
+        out.append(rec)
+    return out if rank == 0 else None
+
+
+@contextlib.contextmanager
+def wrapper_calls():
+    """Count the calls of the kernels' wrappers (flash attention, RMSNorm,
+    the SSD scan) the models make; each call goes through to the wrapper,
+    which takes its plain route on a CPU tensor."""
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+
+    calls = collections.Counter()
+    saved = []
+    for mod, name in ((flash_attention, "flash_attention"), (rmsnorm, "rmsnorm"),
+                      (ssd_scan, "ssd_scan")):
+        inner = getattr(mod, name)
+
+        def counted(*args, _inner=inner, _name=name, **kwargs):
+            calls[_name] += 1
+            return _inner(*args, **kwargs)
+
+        saved.append((mod, name, inner))
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def kernel_serve_steps(rank, world, cases):
+    """:func:`serve_steps` of each case on its own, with the wrappers'
+    calls counted: (the record, the calls) for each case on rank 0."""
+    out = []
+    for case in cases:
+        with wrapper_calls() as calls:
+            (rec,) = serve_steps(rank, world, [case]) or [None]
+        out.append((rec, dict(calls)))
+    return out if rank == 0 else None
+
+
+def _first_leaves(caches) -> dict:
+    """The cache's first tensor under each top key (its placements show the
+    layout)."""
+    return {k: leaves(v)[0] for k, v in caches.items()}
 
 
 def moe_layers(rank, world, cases):

@@ -43,6 +43,9 @@ def test_every_module_imports_with_jax_blocked(tmp_path):
         "assert {'repro_torch.parallel.' + m for m in ('collectives', 'context', 'moe_parallel',"
         " 'sharding', 'vocab')} | {'repro_torch.launch.mesh', 'repro_torch.launch.dryrun'}"
         " <= set(names)\n"
+        # and the launch tools: the counter, the roofline terms and the
+        # finite difference
+        "assert {'repro_torch.launch.roofline', 'repro_torch.launch.roofline_fd'} <= set(names)\n"
         # ...and they run: the train CLI (with a resume), the calibration
         # and a placeto plan
         "from repro_torch.launch.train import main as train_main\n"
