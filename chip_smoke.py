@@ -101,9 +101,12 @@ Phases (any failure exits non-zero; nothing is caught):
    initial one (as the model updates its cache), and with dt zeroed past
    per-row lengths; every bf16 call must run the tensor-core kernel and
    every fp32 call the CUDA-core one (counted by kernel), and two bf16
-   launches at each fused-chunk shape must be bit-identical;
-   phase 3 also holds both flash kernels at zamba2's head dim 80 (32
-   heads, no GQA).
+   launches at each fused-chunk shape must be bit-identical; and at
+   [mesh-ssm]'s prefill on one rank (40 of zamba2's 80 heads, 4 and 8
+   rows of 256 tokens); phase 3 also holds both flash kernels at zamba2's
+   head dim 80 (32 heads, no GQA), and the dense one as a rank of
+   [mesh-ssm] runs it (16 / 16 heads, Sq 256 at depth 0 and decode rows,
+   over 272 keys).
    ``[serve-ssm]``: full-width mamba2-130m and zamba2-2.7b (bf16, random
    weights from a seed) through ``build_model(cfg).fused_step``, driven
    like ``tests/test_fused_step.py::_fused_generate`` (8 requests of
@@ -254,7 +257,21 @@ Phases (any failure exits non-zero; nothing is caught):
    step, written by those four ranks as step 42 (rank 0 writes), resumed
    by two on (1 x 2) from the host: the step, every tensor bit-equal to
    the checkpoint, the next loss within 1e-5 relative of the four ranks'
-   second step.
+   second step.  ``[mesh-ssm]`` (the same ranks): zamba2-2.7b at full
+   width (d_model 2560, 80 heads of 64, N 64, the shared D 80 block) on
+   (2 x 2), its Mamba trunk cut by heads over "model" as the reference's
+   rules cut it (40 heads a rank), kernel config: 8 prompts of 256 tokens
+   prefilled and 16 greedy decode steps, fp32 at 6 layers (one segment)
+   with tokens identical to one process on the card and logits within
+   1e-4 of the logit scale, bf16 at 12 layers
+   (two shared-block occurrences; zamba2 has 54) with every forward's
+   logits within 0.1 of the logit scale of one process fed the same
+   tokens, an argmax flip only at a bf16 tie; on every rank every
+   forward's launches (the SSD scan once a Mamba layer at S > 1 on 40
+   heads, RMSNorm ``norms_per_forward(cfg, heads_cut=True)``, all on the
+   rows kernel, flash once a shared block) and no Mamba weight gathered;
+   a decode step's collectives and time; one train step at 6 layers in
+   bf16 (plain config), loss and grad norm within 1e-2 of one process.
 15. the launch tools.  ``[dryrun]``: the dry-run of every arch at
    decode_32k, long_500k and train_4k, and of arctic-480b at prefill_32k,
    on the (16 x 16) production mesh (the other prefill cells and the
@@ -427,19 +444,23 @@ def path(arch: str, paged: bool) -> tuple:
     return kernels + (("grouped_gemm",) if arch == MOE else ())
 
 
-def norms_per_forward(cfg) -> int:
+def norms_per_forward(cfg, *, heads_cut: bool = False) -> int:
     """RMSNorm launches of one forward: 2 an attention block (+ 2 for the
     per-head q/k norms, + 2 for post-norms), 2 a Mamba layer, plus the
     final norm; a hybrid model's shared attention block counts at each of
     its occurrences; an enc-dec model's decoder forward has 3 a layer (self,
-    cross, MLP) and its encoder pass 2 a layer + 1 (``encode_norms``)."""
+    cross, MLP) and its encoder pass 2 a layer + 1 (``encode_norms``).
+    ``heads_cut``: on a mesh that cuts the Mamba heads a layer launches 1,
+    its ``ln``: the gated norm reduces its sums over the ranks in plain
+    PyTorch (``ssm.gated_norm``), not on the kernel."""
     attn = 2 + 2 * cfg.qk_norm + 2 * cfg.post_block_norm
+    mamba = 1 if heads_cut else 2
     if cfg.family == "encdec":
         return 3 * cfg.n_layers + 1
     if cfg.family == "ssm":
-        return 2 * cfg.n_layers + 1
+        return mamba * cfg.n_layers + 1
     if cfg.family == "hybrid":
-        return 2 * cfg.n_layers + attn * (cfg.n_layers // cfg.shared_attn_every) + 1
+        return mamba * cfg.n_layers + attn * (cfg.n_layers // cfg.shared_attn_every) + 1
     return attn * cfg.n_layers + 1
 
 
@@ -526,6 +547,19 @@ def ragged_chunk_cases(dev, dtype, arch):
     hk = HEADS[arch]
     kw = dict(sq=100, depths=[0, 1000], q_lens=[100, 100], **hk)
     return flash_inputs(dev, dtype, **kw), paged_inputs(dev, dtype, P=64, **kw)
+
+
+def mesh_ssm_flash_cases(dev, dtype) -> dict:
+    """[mesh-ssm]'s flash calls on one rank of its (2 x 2) mesh: zamba2's
+    shared block on half its heads (16 / 16, D 80) and half the rows, over
+    the dense cache of ``MESH_SSM_PROMPT + MESH_SSM_STEPS`` keys: the
+    prompts' prefill (Sq 256 at depth 0) and a decode row each at the last
+    step's depth."""
+    hk = dict(HEADS[ZAMBA], h=HEADS[ZAMBA]["h"] // 2, kv=HEADS[ZAMBA]["kv"] // 2)
+    b, s, sk = MESH_SSM_ROWS // 2, MESH_SSM_PROMPT, MESH_SSM_PROMPT + MESH_SSM_STEPS
+    return {f"sq{s}": flash_inputs(dev, dtype, sq=s, depths=[0] * b, q_lens=[s] * b, sk=sk, **hk),
+            "decode": flash_inputs(dev, dtype, sq=1, depths=[sk - 1] * b, q_lens=[1] * b,
+                                   sk=sk, **hk)}
 
 
 def run_flash(fn, inp, extra):
@@ -781,8 +815,9 @@ def phase_check(dev) -> dict:
     qwen3's GQA 40 / 8; zamba2's D 80; gemma-7b's D 256; seamless's causal
     decoder self-attention, D 64 at 16 / 16), and a ragged chunk (Sq 100)
     at each head dim, dense and paged (pages of 16, 64 and 48 tokens), fp32
-    and bf16, each call held by ``check_flash_call``.  Then the grouped
-    GEMM's cases."""
+    and bf16, each call held by ``check_flash_call``; zamba2's shared block
+    as one rank of [mesh-ssm] runs it (``mesh_ssm_flash_cases``).  Then the
+    grouped GEMM's cases."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
@@ -809,6 +844,12 @@ def phase_check(dev) -> dict:
                                      paged=True)
             log(f"[check] flash_attention {tag} sq100 depths 0/1000 {dt}: max abs err "
                 f"{err:.3e}; paged P64 {p_err:.3e}, equal to the dense kernel on the gathered view")
+        for case, inp in mesh_ssm_flash_cases(dev, dtype).items():
+            err = check_flash_call(dev, f"flash d80 16/16 {case}", inp, {}, errs,
+                                   ("flash_attention", f"d80h16_{case}", dtype))
+            log(f"[check] flash_attention d80 16/16 ([mesh-ssm]'s rank) {case} {dt} q "
+                f"{tuple(inp['q'].shape)} k {tuple(inp['k'].shape)}: max abs err {err:.3e}, two "
+                "launches bit-identical")
         for case, inp in gg_cases(dev, dtype).items():
             out = run_gg(gg.grouped_gemm, inp)
             err = within(out, run_gg(gg.grouped_gemm_plain, inp))
@@ -2596,6 +2637,9 @@ def check_ssd_case(name, dtype, args, st, chunk, errs) -> None:
     log(f"[check-ssd] {name} {str(dtype)[6:]}: y max err / max |ref| {ey:.3e}, state {es:.3e}")
 
 
+# [mesh-ssm]'s scans: zamba2's heads cut over a 2-wide model axis
+SSD_MESH = dict(SSD_HEADS[ZAMBA], h=SSD_HEADS[ZAMBA]["h"] // 2)
+
 # the multi-chunk prefill shape: mamba2's heads, 2 rows of 512 tokens
 # (four chunks of 128), from a carried state
 SSD_PREFILL = dict(b=2, s=512, init=True, **SSD_HEADS[MAMBA])
@@ -2605,7 +2649,9 @@ def phase_check_ssd(dev) -> dict:
     """The SSD kernel against its plain version, fp32 and bf16: the
     reference test's shapes (G 2 and 4, S = 50 not a multiple of the
     chunk), both models' heads at S = 1, 17, 64 and 200, from a zero and a
-    random initial state, and the multi-chunk prefill shape; dt zeroed past
+    random initial state, the multi-chunk prefill shape, and [mesh-ssm]'s
+    prefill on zamba2's heads cut over 2 model ranks (40 heads; 4 and 8
+    rows of 256 tokens, from a zero and a random state); dt zeroed past
     per-row lengths (the fused step's padding) must leave the state of the
     unpadded rows.  Every bf16 call must run the tensor-core kernel and
     every fp32 call the CUDA-core one, and two bf16 launches at each
@@ -2650,6 +2696,13 @@ def phase_check_ssd(dev) -> dict:
                 log(f"[check-ssd] {arch}_fused_chunk bf16: two launches bit-identical")
         args, st = ssd_inputs(dev, dtype, **SSD_PREFILL)
         check_ssd_case(f"{MAMBA} prefill S{SSD_PREFILL['s']}", dtype, args, st, 128, errs)
+        # [mesh-ssm]'s prefill on one rank (half the rows, half the heads),
+        # and at all of its rows
+        for b in (MESH_SSM_ROWS // 2, MESH_SSM_ROWS):
+            for init in (False, True):
+                args, st = ssd_inputs(dev, dtype, b=b, s=MESH_SSM_PROMPT, init=init, **SSD_MESH)
+                check_ssd_case(f"{ZAMBA} on 2 model ranks B{b} S{MESH_SSM_PROMPT} "
+                               f"H{SSD_MESH['h']} init={init}", dtype, args, st, 128, errs)
         lens = [150, 37, 1, 0]
         args, st = ssd_inputs(dev, dtype, b=4, s=150, init=True, **SSD_HEADS[MAMBA])
         keep = torch.arange(150, device=dev)[None, :, None] < torch.tensor(
@@ -3814,7 +3867,8 @@ def _mesh_steps(cfg, mesh, dev, steps, *, ref=None, save=None) -> dict:
            "save_s": save_s,
            "collectives": {k: {"calls": int(v[0]), "bytes": int(v[1]), "s": float(v[2])}
                            for k, v in coll.items()},
-           "moment_layout": str(o["m"]["layers"][0]["attn"]["wq"].placements)}
+           "moment_layout": str((o["m"]["layers"][0]["attn"]["wq"] if "layers" in o["m"] else
+                                 o["m"]["mamba_layers"][0]["mamba"]["w_x"]).placements)}
     if ref is not None:
         want = torch.load(ref, map_location=dev) if torch.distributed.get_rank() == 0 else None
         diff = 0.0
@@ -3830,11 +3884,12 @@ def _mesh_steps(cfg, mesh, dev, steps, *, ref=None, save=None) -> dict:
 
 
 def mesh_rank(rank, world, dev, fp32_ref, ckpt, ep_inputs):
-    """One rank of the sharded trainer's phases: [mesh-train] on the
-    (2 data x 2 model) mesh, whose bf16 llama run writes [mesh-elastic]'s
-    checkpoint into ``ckpt``, then [mesh-moe]'s cases (rank 0 saves the
-    timed case's grouped-GEMM inputs to ``ep_inputs``); one group of four
-    ranks for the three, since each group costs its start-up."""
+    """One rank of the sharded phases: [mesh-train] on the (2 data x 2
+    model) mesh, whose bf16 llama run writes [mesh-elastic]'s checkpoint
+    into ``ckpt``, then [mesh-moe]'s cases (rank 0 saves the timed case's
+    grouped-GEMM inputs to ``ep_inputs``), then [mesh-ssm]'s runs; one
+    group of four ranks for them all, since each group costs its
+    start-up."""
     from repro_torch.launch.mesh import make_debug_mesh
 
     from repro_torch.parallel.collectives import functional_collectives_routed
@@ -3856,6 +3911,7 @@ def mesh_rank(rank, world, dev, fp32_ref, ckpt, ep_inputs):
     if rank == 0:
         log(f"[mesh-moe] rank 0: {len(out['moe']['cases'])} cases in "
             f"{time.perf_counter() - t0:.1f}s")
+    out["ssm"] = mesh_ssm_rank(rank, world, dev)
     return out
 
 
@@ -3949,7 +4005,8 @@ def phase_mesh_train(dev, ckpt, ep_inputs) -> dict:
         f"{all(o['routed'] for o in outs)}")
     if not all(o["routed"] for o in outs):
         raise AssertionError("[mesh-train] DTensor's functional collectives were not routed")
-    result = {"ranks_s": t_ranks, "references_s": t_ref, "moe": [o["moe"] for o in outs]}
+    result = {"ranks_s": t_ranks, "references_s": t_ref, "moe": [o["moe"] for o in outs],
+              "ssm": [o["ssm"] for o in outs]}
     for key, what in (("llama_bf16", f"{LLAMA} bf16 {MESH_LLAMA_LAYERS} layers"),
                       ("llama_fp32", f"{LLAMA} fp32 2 layers"),
                       ("moe_bf16", f"{MOE} bf16 {MESH_MOE_LAYERS} layers")):
@@ -4261,6 +4318,263 @@ def phase_mesh_elastic(four, ckpt) -> dict:
         raise AssertionError(f"[mesh-elastic] resume failed: {two} vs {cont}")
     return {"loss_rel_err": err, "wall_s": wall, "resume_s": two["resume_s"],
             "save_s": four["save_s"]}
+
+
+# ------------------------------------------------------ the Mamba trunk on a mesh
+# [mesh-ssm]: zamba2-2.7b at full width on [mesh-train]'s four ranks (2 x 2):
+# its 80 heads cut over "model" (40 a rank) as the reference's rules cut them
+MESH_SSM_LAYERS = 12             # of zamba2's 54: two segments, two shared-block occurrences
+MESH_SSM_FP32_LAYERS = 6         # one segment (a shared block every 6): the fp32 greedy parity
+MESH_SSM_TRAIN_LAYERS = 6        # one segment: the train step (plain config)
+MESH_SSM_ROWS, MESH_SSM_PROMPT, MESH_SSM_STEPS = 8, 256, 16
+MESH_SSM_FP32_TOL = 1e-4         # fp32 logits vs one process, times the logit scale
+
+
+def mesh_ssm_prompts(cfg, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    return torch.randint(1, cfg.vocab_size, (MESH_SSM_ROWS, MESH_SSM_PROMPT), device=dev,
+                         generator=g, dtype=torch.int32)
+
+
+def mesh_ssm_params(cfg, dev, mesh=None):
+    """The seeded init on the card; on ``mesh``, distributed by the rules."""
+    from repro_torch.convert import init_params
+    from repro_torch.parallel.sharding import param_shardings
+
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    if mesh is not None:
+        params = param_shardings(cfg, mesh, params)
+        free_card()
+    return params
+
+
+def mesh_ssm_serve(cfg, params, dev, *, mesh=None, feed=None) -> dict:
+    """``MESH_SSM_ROWS`` prompts of ``MESH_SSM_PROMPT`` tokens prefilled,
+    then ``MESH_SSM_STEPS`` greedy decode steps of ``cfg`` (a kernel
+    config): on ``mesh``'s ranks (``params`` distributed by the rules,
+    under the mesh's parallel context) or in this process.  ``feed``:
+    decode these tokens (another run's greedy tokens) instead of this
+    run's own.  Returns each forward's last-position logits (whole, fp32,
+    on the host), the greedy tokens, each forward's launches and the head
+    counts its SSD scans ran on, the decode steps' seconds, the last decode
+    step's collectives, and (on a mesh) the Mamba weights a forward
+    gathered (``_torch_mesh_ranks.weight_gathers``)."""
+    from _torch_mesh_ranks import weight_gathers
+    from repro_torch.parallel.collectives import log_collectives
+    from repro_torch.parallel.sharding import distribute
+    from repro_torch.parallel.vocab import greedy_tokens
+    from repro_torch.train.tree import leaves_with_paths
+
+    model = build_model(cfg)
+    prompts = mesh_ssm_prompts(cfg, dev)
+    b, s = prompts.shape
+    if mesh is not None:
+        put = lambda t: distribute(t, mesh, ("data", None))        # noqa: E731
+        whole = lambda t: t.full_tensor()                           # noqa: E731
+        argmax = lambda lg: greedy_tokens(lg).full_tensor()         # noqa: E731
+        mamba = {"/".join(map(str, p)): w for p, w in leaves_with_paths(params["mamba_layers"])
+                 if "mamba" in p}
+        watch = lambda: weight_gathers(mamba)                       # noqa: E731
+    else:
+        put = whole = lambda t: t                                   # noqa: E731
+        argmax = lambda lg: lg.argmax(-1).to(torch.int32)           # noqa: E731
+        watch = lambda: contextlib.nullcontext([])                  # noqa: E731
+    out = {"logits": [], "tokens": [], "launches": [], "heads": [], "step_s": [], "gathers": []}
+    heads, inner = [], ssd.ssd_scan
+
+    def scan(x, *args, **kwargs):
+        heads.append(x.shape[2])
+        return inner(x, *args, **kwargs)
+
+    def run(fn):
+        heads.clear()
+        reset_counts()
+        with watch() as seen:
+            logits, caches = fn()
+        torch.cuda.synchronize(dev)
+        out["launches"].append(counts())
+        out["heads"].append(sorted(set(heads)))
+        out["gathers"] += seen
+        return logits, caches
+
+    ssd.ssd_scan = scan
+    try:
+        with torch.no_grad():
+            logits, caches = run(lambda: model.prefill(params, {"tokens": put(prompts)},
+                                                       s + MESH_SSM_STEPS))
+            for t in range(MESH_SSM_STEPS):
+                out["logits"].append(whole(logits).float().cpu())
+                tok = argmax(logits)
+                out["tokens"].append(tok.cpu().tolist())
+                if feed is not None:
+                    tok = torch.tensor(feed[t], dtype=torch.int32, device=dev)
+                nxt = {"tokens": put(tok.reshape(b, 1))}
+                pos = torch.tensor(s + t, dtype=torch.int32)
+                torch.cuda.synchronize(dev)
+                if mesh is not None:
+                    torch.distributed.barrier()
+                t0 = time.perf_counter()
+                with log_collectives() as coll:
+                    logits, caches = run(lambda: model.decode_step(params, nxt, caches, pos))
+                out["step_s"].append(time.perf_counter() - t0)
+            out["logits"].append(whole(logits).float().cpu())
+    finally:
+        ssd.ssd_scan = inner
+    out["collectives"] = {k: {"calls": int(v[0]), "bytes": int(v[1]), "s": float(v[2])}
+                          for k, v in coll.items()}
+    return out
+
+
+def mesh_ssm_rank(rank, world, dev) -> dict:
+    """[mesh-ssm]'s ranks (run by [mesh-train]'s group): zamba2 served on
+    (2 x 2) in fp32 at ``MESH_SSM_FP32_LAYERS`` layers and in bf16 at
+    ``MESH_SSM_LAYERS`` (:func:`mesh_ssm_serve`), then one train step at
+    ``MESH_SSM_TRAIN_LAYERS`` (:func:`_mesh_steps`).  Every rank returns
+    its launches, heads and gathers; rank 0 also the logits and tokens."""
+    from repro_torch.launch.dryrun import make_context
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.context import parallel_context
+
+    mesh = make_debug_mesh(world, device_type=dev.type)
+    out = {}
+    for key, cfg in (("fp32", full_cfg(ZAMBA, dtype="float32", n_layers=MESH_SSM_FP32_LAYERS)),
+                     ("bf16", full_cfg(ZAMBA, n_layers=MESH_SSM_LAYERS))):
+        t0 = time.perf_counter()
+        params = mesh_ssm_params(cfg, dev, mesh)
+        with parallel_context(make_context(mesh, cfg, MESH_SSM_ROWS)):
+            run = mesh_ssm_serve(cfg, params, dev, mesh=mesh)
+        run["w_x"] = str(params["mamba_layers"][0]["mamba"]["w_x"].placements)
+        run["s"] = time.perf_counter() - t0
+        if rank != 0:
+            del run["logits"], run["tokens"]
+        out[key] = run
+        del params
+        free_card()
+    t0 = time.perf_counter()
+    out["train"] = _mesh_steps(mesh_cfg(ZAMBA, n_layers=MESH_SSM_TRAIN_LAYERS), mesh, dev, 1)
+    out["train"]["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_ssm(outs, dev) -> dict:
+    """[mesh-ssm]: zamba2-2.7b at full width (d_model 2560, 80 heads of 64,
+    N 64, a shared D 80 attention block every 6 layers) on four ranks
+    sharing the card over gloo, (2 x 2): the Mamba trunk cut by heads over
+    "model" as the reference's rules cut it (40 heads a rank), kernel
+    config.  Held to this process on the card with the same kernels: fp32
+    at one segment (``MESH_SSM_FP32_LAYERS``), 8 prompts of 256 tokens and
+    16 greedy decode steps, identical tokens and every forward's
+    last-position logits within ``MESH_SSM_FP32_TOL`` of the logit scale;
+    bf16 at
+    ``MESH_SSM_LAYERS``, the one-process run fed the sharded run's tokens,
+    each forward's last-position logits within 0.1 of the logit scale with
+    an argmax flip only at a bf16 tie (``bf16_tie_bound``).  Every forward
+    on every rank: the SSD scan once a Mamba layer at S > 1, on 40 heads
+    (80 in one process), never at S = 1; the RMSNorm kernel
+    ``norms_per_forward(cfg, heads_cut=True)`` times, all on the rows
+    kernel; flash once a shared-block occurrence; no Mamba weight gathered
+    (:func:`~_torch_mesh_ranks.weight_gathers`).  A decode step's
+    collectives by kind and its time.  One train step at
+    ``MESH_SSM_TRAIN_LAYERS`` layers (bf16, the plain config): loss and
+    grad norm within [mesh-train]'s bf16 bounds of one process.
+    ``outs``: each rank's :func:`mesh_ssm_rank`."""
+    tag = "[mesh-ssm]"
+    t_start = time.perf_counter()
+    r0 = outs[0]
+    result = {"ranks_s": {k: r0[k]["s"] for k in ("fp32", "bf16", "train")}}
+    for key, cfg in (("fp32", full_cfg(ZAMBA, dtype="float32", n_layers=MESH_SSM_FP32_LAYERS)),
+                     ("bf16", full_cfg(ZAMBA, n_layers=MESH_SSM_LAYERS))):
+        got = r0[key]
+        params = mesh_ssm_params(cfg, dev)
+        one = mesh_ssm_serve(cfg, params, dev, feed=None if key == "fp32" else got["tokens"])
+        del params
+        free_card()
+        n_shared = cfg.n_layers // cfg.shared_attn_every
+        norms = norms_per_forward(cfg, heads_cut=True)
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim // 2    # over 2 model ranks
+        for r, o in enumerate(outs):
+            per = o[key]
+            for i, (c, h) in enumerate(zip(per["launches"], per["heads"])):
+                scans = cfg.n_layers if i == 0 else 0
+                if (c["ssd_scan"] != scans or h != ([heads] if scans else [])
+                        or c["rmsnorm"] != norms or c["rmsnorm_rows"] != norms
+                        or c["flash_attention"] != n_shared):
+                    raise AssertionError(f"{tag} {key} rank {r} forward {i}: launches {c}, SSD "
+                                         f"heads {h}; want {scans} scans on {heads} heads, {norms} "
+                                         f"RMSNorms on the rows kernel, {n_shared} flash")
+            if per["gathers"]:
+                raise AssertionError(f"{tag} {key} rank {r}: Mamba weights gathered: "
+                                     f"{per['gathers']}")
+        c0, c1 = got["launches"][0], got["launches"][1]
+        o0, o1 = one["launches"][0], one["launches"][1]
+        log(f"{tag} {ZAMBA} {key} {cfg.n_layers} layers, w_x {got['w_x']}: a forward per rank "
+            f"(ranks alike): prefill SSD scans {c0['ssd_scan']} on {got['heads'][0]} heads "
+            f"({c0['ssd_scan_mma']} tensor-core, {c0['ssd_scan_core']} CUDA-core), RMSNorm "
+            f"{c0['rmsnorm']}, flash {c0['flash_attention']}; decode step SSD {c1['ssd_scan']}, "
+            f"RMSNorm {c1['rmsnorm']}, flash {c1['flash_attention']} (decode kernel "
+            f"{c1['flash_attention_decode']}); one process: prefill SSD {o0['ssd_scan']} on "
+            f"{one['heads'][0]} heads, RMSNorm {o0['rmsnorm']} a forward, flash "
+            f"{o0['flash_attention']}; decode RMSNorm {o1['rmsnorm']}; no Mamba weight gathered "
+            f"on any rank")
+        coll = got["collectives"]
+        med = float(np.median(got["step_s"]))
+        log(f"{tag} {key}: a decode step's collectives, rank 0: {_collectives_line(coll)}; "
+            f"decode step s median {med:.4f} (one process {float(np.median(one['step_s'])):.4f})")
+        entry = {"launches_prefill": c0, "launches_decode": c1, "heads": got["heads"][0],
+                 "single_launches_prefill": o0, "decode_step_s": med,
+                 "single_decode_step_s": float(np.median(one["step_s"])),
+                 "collectives": coll}
+        if key == "fp32":
+            same = got["tokens"] == one["tokens"]
+            diff = max((g - w).abs().max().item() for g, w in zip(got["logits"], one["logits"]))
+            scale = max(w.abs().max().item() for w in one["logits"])
+            log(f"{tag} fp32: greedy tokens over {MESH_SSM_ROWS} rows x {MESH_SSM_STEPS} steps "
+                f"identical to one process: {same}; logits of {len(got['logits'])} forwards: max "
+                f"abs diff {diff:.3e} (logit scale {scale:.3f}, bound "
+                f"{MESH_SSM_FP32_TOL * scale:.3e})")
+            if not same:
+                raise AssertionError(f"{tag} fp32 greedy tokens differ from one process")
+            if not diff <= MESH_SSM_FP32_TOL * scale:
+                raise AssertionError(f"{tag} fp32 logits differ from one process")
+            entry.update(max_abs_diff=diff, logit_scale=scale)
+        else:
+            diffs, flips, scale = [], [], 0.0
+            for t, (g, w) in enumerate(zip(got["logits"], one["logits"])):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{tag} bf16 logits not finite at forward {t}")
+                diffs.append((g - w).abs().max().item())
+                scale = max(scale, w.abs().max().item())
+                flips += [(t, row, gap) for row, gap in argmax_ties(g, w)]
+            tie = bf16_tie_bound(scale)
+            log(f"{tag} bf16: logits of {len(diffs)} forwards vs one process fed the same tokens: "
+                f"max abs diff {max(diffs):.4f} (logit scale {scale:.3f}, bound "
+                f"{0.1 * scale:.4f}); argmax flips (forward, row, gap) {flips}, a flip passes "
+                f"only at a gap <= {tie:.6f}")
+            if not (max(diffs) <= 0.1 * scale and all(gap <= tie for _, _, gap in flips)):
+                raise AssertionError(f"{tag} bf16 logits differ from one process")
+            entry.update(max_abs_diff=max(diffs), logit_scale=scale, flips=flips)
+        result[key] = entry
+    cfg = mesh_cfg(ZAMBA, n_layers=MESH_SSM_TRAIN_LAYERS)
+    ref = _single_process(cfg, dev, 1)
+    got = r0["train"]
+    err = _rel(got["losses"][0], ref["losses"][0])
+    norm_err = _rel(got["grad_norms"][0], ref["grad_norms"][0])
+    log(f"{tag} train {cfg.n_layers} layers bf16: loss {got['losses'][0]:.5f} vs one process "
+        f"{ref['losses'][0]:.5f} (rel {err:.2e}, bound {MESH_BF16_LOSS_TOL:.0e}); grad norm "
+        f"{got['grad_norms'][0]:.5f} vs {ref['grad_norms'][0]:.5f} (rel {norm_err:.2e}, bound "
+        f"{MESH_BF16_NORM_TOL:.0e}); step {got['step_s'][0]:.3f}s, peak "
+        f"{got['peak_bytes'] / 1e9:.2f} GB a rank; collectives of the step, rank 0: "
+        f"{_collectives_line(got['collectives'])}")
+    if not (math.isfinite(got["losses"][0]) and err <= MESH_BF16_LOSS_TOL
+            and norm_err <= MESH_BF16_NORM_TOL):
+        raise AssertionError(f"{tag} train step differs from one process")
+    result["train"] = {"loss_rel_err": err, "grad_norm_rel_err": norm_err,
+                       "step_s": got["step_s"][0], "collectives": got["collectives"]}
+    result["parent_s"] = time.perf_counter() - t_start
+    log(f"{tag} ranks {sum(result['ranks_s'].values()):.1f}s (fp32 "
+        f"{result['ranks_s']['fp32']:.1f}, bf16 {result['ranks_s']['bf16']:.1f}, train "
+        f"{result['ranks_s']['train']:.1f}), this process {result['parent_s']:.1f}s")
+    return result
 
 
 def ssd_work(args, st, chunk) -> tuple:
@@ -4860,9 +5174,9 @@ def phase_dryrun_card(dev) -> dict:
         peak = real["device_peak_bytes"]
         lb, ms = real["step_time_lb_s"], real["measured_step_s"]
         log(f"[dryrun-card] {LLAMA} {name} batch {batch}, {layers} layers: flops "
-            f"{real['flops_per_device']:.6g} bytes {real['bytes_per_device']:.6g} (fake = real); "
-            f"predicted peak {pred / 1e9:.3f} GB, card {peak / 1e9:.3f} GB "
-            f"({(pred - peak) / peak:+.2%}); "
+            f"{real['flops_per_device']:.6g} bytes {real['bytes_per_device']:.6g} collective "
+            f"bytes {real['collective_bytes_per_device']:.6g} (fake = real); predicted peak "
+            f"{pred / 1e9:.3f} GB, card {peak / 1e9:.3f} GB ({(pred - peak) / peak:+.2%}); "
             f"lb {lb * 1e3:.3f} ms ({real['dominant']}), measured {ms * 1e3:.3f} ms, "
             f"lb / measured {lb / ms:.4f}")
         if abs(pred - peak) > CARD_PEAK_TOL * peak:
@@ -5062,6 +5376,7 @@ def main() -> int:
     try:
         mesh_train = timed(phase_mesh_train, dev, ckpt, ep_inputs)
         mesh_moe = timed(phase_mesh_moe, mesh_train["moe"], dev, ep_inputs)
+        mesh_ssm = timed(phase_mesh_ssm, mesh_train["ssm"], dev)
         timed(phase_mesh_elastic, mesh_train["llama_bf16"], ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5229,6 +5544,11 @@ def main() -> int:
                                   (MAMBA, served_mamba), (ZAMBA, served_zamba),
                                   (SEAMLESS, served_encdec), (VLM, served_vlm))}
             row["launches_by_config"][SEAMLESS]["encode_launches"] = served_encdec["encode"][name]
+            # [mesh-ssm]: rank 0's bf16 zamba2 forwards, the gated norms off the kernel
+            ssm0 = mesh_train["ssm"][0]["bf16"]["launches"]
+            row["launches_by_config"][ZAMBA + " (2 x 2, heads cut)"] = {
+                "launches": sum(c[name] for c in ssm0), "launches_per_forward": ssm0[0][name],
+                "rows_kernel": sum(c["rmsnorm_rows"] for c in ssm0)}
         kernels.append(row)
     # the split-KV decode kernel (and its merge) as kernels of their own:
     # D 64 at the top, D 128, D 80 and D 256 nested, as the chunk rows
@@ -5248,6 +5568,13 @@ def main() -> int:
         "ms": t_m["ms"], "plain_ms": t_m["plain_ms"], "bound_ms": t_m["bound_ms"],
         "bound_by": t_m["bound_by"], "library_ms": None, "shape": "mamba2_fused_chunk",
         "launches_per_forward": served_mamba["per_forward"]["ssd_scan"],
+        # this slice's path: zamba2's trunk cut by heads on (2 x 2), rank 0's
+        # bf16 forwards, 40 of the 80 heads a launch
+        "mesh_ssm": {
+            "launches": sum(c["ssd_scan"] for c in mesh_train["ssm"][0]["bf16"]["launches"]),
+            "heads": mesh_ssm["bf16"]["heads"],
+            "launches_prefill": mesh_ssm["bf16"]["launches_prefill"]["ssd_scan"],
+        },
         "zamba2": {
             "launches": served_zamba["cli"]["ssd_scan"],
             "launches_per_forward": served_zamba["per_forward"]["ssd_scan"],

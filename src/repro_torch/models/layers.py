@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa_kernel
 from repro_torch.kernels import rmsnorm as rms_kernel
-from repro_torch.parallel.context import is_dtensor, like_batch, shard_hint
+from repro_torch.parallel.context import grad_as, is_dtensor, like_batch, shard_hint
 
 Params = Dict[str, Any]
 
@@ -294,20 +294,23 @@ def _attention_on_mesh(q, k, v, positions, cfg: ModelConfig, *, cross, causal, w
     from ``arange``, never meet a DTensor.  k and v are laid out like q's
     heads (``kv_heads``), which keeps each rank's query heads beside their
     KV group; that needs the KV head count to divide over the head axis."""
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Partial, Replicate
 
-    kv_of = None
+    kv_of, grads = None, None
     if cfg.n_kv_heads % _head_shards(q) == 0:
         k = shard_hint(k, "batch", None, "kv_heads", None)
         v = shard_hint(v, "batch", None, "kv_heads", None)
     else:
         # fewer KV heads than head shards: every rank of the head axis holds
-        # them all and takes those of its own query heads
+        # them all and takes those of its own query heads, so its gradient
+        # of k and v is partial over that axis (its heads' part)
         whole = [Replicate() if p.is_shard(2) else p for p in q.placements]
         k = k.redistribute(q.device_mesh, whole)
         v = v.redistribute(q.device_mesh, whole)
         h0 = _local_offset(q)[2]
         kv_of = lambda n, dev: (h0 + torch.arange(n, device=dev)) // (cfg.n_heads // cfg.n_kv_heads)  # noqa: E731
+        part = [Partial() if p.is_shard(2) else p for p in q.placements]
+        grads = (None, part, part, None)
     if not is_dtensor(positions):
         positions = like_batch(positions, q, batch_dim=positions.ndim - 2)
     if causal is None:
@@ -331,18 +334,20 @@ def _attention_on_mesh(q, k, v, positions, cfg: ModelConfig, *, cross, causal, w
         return _plain_core(q, k, v, q_pos, k_pos1d, cfg, causal=causal, window=window,
                            scale=scale)
 
-    return _on_shards(core, (q, k, v, positions), like=q)
+    return _on_shards(core, (q, k, v, positions), like=q, grads=grads)
 
 
-def _on_shards(fn, args, *, like, extra=()):
+def _on_shards(fn, args, *, like, extra=(), grads=None):
     """``fn`` on the local shards of DTensors ``args`` (and the plain
     ``extra``), PyTorch's ``local_map`` with the result laid out and
     shaped like DTensor ``like`` — also where a dim is cut unevenly, which
     ``local_map`` cannot shape.  Gradients flow back to each argument in
-    its own layout."""
+    its own layout, or in the layout ``grads`` gives it (one entry an
+    argument, ``None`` for its own)."""
     from torch.distributed.tensor import DTensor
 
-    out = fn(*(a.to_local() for a in args), *extra)
+    grads = grads or (None,) * len(args)
+    out = fn(*(a.to_local(grad_placements=g) for a, g in zip(args, grads)), *extra)
     # the global strides keep the local tensor's order of dims
     stride, step = [0] * out.ndim, 1
     for d in sorted(range(out.ndim), key=out.stride):
@@ -464,7 +469,9 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
     """``[B, S, n, hd]`` → ``[B, S, n·hd]`` for a DTensor; heads cut
     unevenly over the mesh (``n`` not a multiple of the parts) are made
     whole first: their columns would not be DTensor's even cut of the
-    merged dim."""
+    merged dim.  Its gradient is then made whole there too: the row-cut
+    product after it hands back one cut evenly along ``n·hd``, which
+    DTensor cannot split into the heads."""
     from torch.distributed.tensor import Replicate
 
     b, s, n, hd = t.shape
@@ -472,6 +479,7 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
     if dims and n % math.prod(t.device_mesh.size(m) for m in dims):
         t = t.redistribute(t.device_mesh, [Replicate() if m in dims else p
                                            for m, p in enumerate(t.placements)])
+        return grad_as(t.reshape(b, s, n * hd), t.placements)
     return t.reshape(b, s, n * hd)
 
 

@@ -19,10 +19,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssd_scan as ssd_kernel
+from repro_torch.parallel import collectives
 from .layers import rmsnorm
 
 Params = Dict[str, Any]
@@ -87,15 +89,25 @@ def mamba2_block(
     kernel: bool = False,
     ssm_out: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32: the scan's final
                                               # state goes here (may be state["ssm"])
+    norm_group=None,                          # the process group cutting the heads
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One Mamba2 block; returns (out, new_state).  Three paths: a fresh
     prefill (``state=None``), a chunk continuation from ``state``
     (``S > 1``, optionally ragged through ``seq_lens``) and the
     single-token recurrent step.  ``kernel=True`` runs the SSD scan and
-    the gated RMSNorm through the CUDA kernels' wrappers."""
-    dims = mamba2_dims(cfg)
+    the gated RMSNorm through the CUDA kernels' wrappers.
+
+    The heads are those of ``p``: on a mesh that cuts them (``norm_group``,
+    the ranks that share the block), ``p`` holds this rank's columns of
+    w_z, w_x, w_dt, conv_x, b_x, norm_w, its heads of A_log, D and dt_bias,
+    its rows of out_proj, and w_B, w_C, conv_B/C whole; the block then runs
+    on those heads (the state too is theirs), its gated norm reduces over
+    the group (:func:`gated_norm`), and the output is this rank's partial
+    sum of ``y @ out_proj``."""
     b, s, _ = xin.shape
-    h, pdim, n, g = dims["nheads"], cfg.ssm_headdim, cfg.ssm_state, cfg.ngroups
+    h, pdim, n, g = p["A_log"].shape[0], cfg.ssm_headdim, cfg.ssm_state, cfg.ngroups
+    if g > 1 and h != mamba2_dims(cfg)["nheads"]:
+        raise NotImplementedError("a Mamba2 block cut by heads takes one B/C group")
     A = -torch.exp(p["A_log"])
 
     z = xin @ p["w_z"]
@@ -182,10 +194,29 @@ def mamba2_block(
         new_state = {"ssm": ssm, "conv_x": new_cx, "conv_B": new_cB, "conv_C": new_cC}
 
     y = y + xs.to(y.dtype) * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(b, s, dims["d_inner"])
-    # gated RMSNorm (mamba2's norm-before-out_proj, gated by z)
-    y = rmsnorm(y * F.silu(z), p["norm_w"], kernel=kernel)
+    y = y.reshape(b, s, h * pdim)
+    y = gated_norm(y, z, p["norm_w"], kernel=kernel, group=norm_group)
     return y @ p["out_proj"], new_state
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, *, kernel: bool = False,
+               group=None, eps: float = 1e-6) -> torch.Tensor:
+    """mamba2's gated RMSNorm (the norm before out_proj, gated by z) over
+    the block's whole d_inner.  ``group``: the ranks over which d_inner is
+    cut, each holding its own columns of ``y``, ``z`` and ``w``.  Each rank
+    sums its columns' squares, the ``[B, S, 1]`` sums are all-reduced over
+    the group (the all-reduce the reference's partitioner places there;
+    their gradient is summed too, each rank having used the sums for its
+    own columns) and each rank scales its own columns — so on such a mesh
+    this norm is plain PyTorch, not an RMSNorm-kernel launch: the kernel
+    takes its rows whole."""
+    u = y * F.silu(z)
+    if group is None:
+        return rmsnorm(u, w, kernel=kernel)
+    uf = u.float()
+    sq = collectives.all_reduce((uf * uf).sum(dim=-1, keepdim=True), group, reduce_grad=True)
+    width = u.shape[-1] * dist.get_world_size(group)
+    return (uf * torch.rsqrt(sq / width + eps) * (1.0 + w.float())).to(u.dtype)
 
 
 STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")

@@ -151,7 +151,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Param
     """Dense cache, zeros, on ``device`` (default: the first card): KV rows,
     the SSM family's recurrent state, or the hybrid's both.  Under a
     parallel context on a real mesh: DTensors laid out by
-    ``cache_pspec_tree``, each rank holding its shard."""
+    ``cache_pspec_tree``, each rank holding its shard.  That layout holds
+    the SSM state's ``ssm`` and ``conv_x`` whole over "model", as the
+    reference's step takes them; where the rules cut the Mamba trunk by
+    heads, the first forward replaces those two entries of the state dict
+    by copies cut over "model" (``_mamba_on_mesh``), the layout in which
+    the reference's step leaves its new state, and they stay so."""
     check_family(cfg)
     on_mesh = cache_on_mesh(cfg, _dense_cache(cfg, batch, max_len, "meta"), batch, max_len)
     if on_mesh is not None:
@@ -333,8 +338,22 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits [B,S,V], caches).  ``page_table`` ``[B,
     pages_per_slot]`` int32 switches KV reads and writes to the page pools
-    of a paged cache."""
+    of a paged cache.
+
+    On a mesh, a batch that the ``batch`` rule's mesh axes do not divide
+    runs with its activations whole over them: every rank of those axes
+    computes every row (``B`` rows where an even cut would give it
+    ``⌈B / n⌉``), as its cache (``cache_pspec_tree``: whole over the data
+    axes for such a batch) and logits hold them.  The reference's
+    partitioner pads such a batch instead."""
     check_family(cfg)
+    ctx = current_context()
+    if ctx is not None and ctx.mesh is not None and ctx.mesh.device_mesh is not None:
+        cut = ctx.rules.get("batch")
+        if cut is not None and _batch_shape(batch, cfg)[0] % ctx.axis_size(cut):
+            with parallel_context(ctx.with_rules(batch=None)):
+                return forward(params, batch, cfg, caches=caches, cache_pos=cache_pos,
+                               q_lens=q_lens, page_table=page_table)
     x, positions = _embed_in(params, batch, cfg)
     if cache_pos is not None:
         # a [B] cache_pos carries one depth per row (ragged batches): each
@@ -408,40 +427,89 @@ def remat(fn, on: bool):
 
 def _mamba_on_mesh(p: Params, x, cfg: ModelConfig, *, stack=None, i: int = 0,
                    cont: bool = False):
-    """A Mamba2 block on a mesh: whole on each rank's batch rows.  Its
-    weights (TP-sharded at rest where the rules say so) are gathered for
-    it, and their gradients are partial over the mesh dims that split the
-    batch; the output takes ``x``'s layout.  With a ``stack`` (a state
-    cache of DTensors ``[L, B, ...]``) layer ``i``'s state is read
-    (``cont``: a continuation) and written in place on the rows of ``x``
-    this rank holds; a state whole over a mesh dim that cuts ``x``'s batch
-    (a batch the data axis does not divide: ``cache_pspec_tree`` keeps it
-    whole, the ``batch`` rule still cuts the activations) is read and
-    written at those rows."""
+    """A Mamba2 block on a mesh, laid out as the reference's rules lay its
+    weights (``parallel/sharding.py``).  Where they cut the trunk over a
+    mesh dim (its head count divides it), each rank runs
+    :func:`mamba2_block` on its own heads with its own weight shards: z,
+    x and dt from its columns of w_z, w_x and w_dt, the causal conv on its
+    channels of conv_x, the SSD scan on its heads, B and C whole from the
+    replicated w_B, w_C and conv_B/C; the gated norm's sums are
+    all-reduced over that dim (:func:`~repro_torch.models.ssm.gated_norm`)
+    and ``y @ out_proj`` on the rank's rows of out_proj is a partial sum,
+    all-reduced at the ``embed`` hint, as ``mlp``'s.  Where the rules
+    replicate the trunk it runs whole on each rank's batch rows, its
+    weights whole at rest (nothing is gathered).
+
+    Gradients: a weight cut over the dim keeps its own gradient; a
+    replicated one receives a gradient partial over it (each rank
+    differentiates its own heads), and every weight's is partial over the
+    dims that cut the batch.  The input's gradient is partial over the cut
+    dim and is all-reduced at the block's input hint.
+
+    With a ``stack`` (a state cache of DTensors ``[L, B, ...]``, its batch
+    laid out as ``x``'s) layer ``i``'s state is read (``cont``: a
+    continuation) and written in place.  Each rank holds the state of its
+    own heads: the first block that cuts them re-lays the stack's ``ssm``
+    ``[L, B, H, P, N]`` and ``conv_x`` ``[L, B, W-1, d_inner]`` (whole over
+    the dim by ``cache_pspec_tree``) cut over it, each rank keeping a copy
+    of its part — no collective, as in the reference's compiled step,
+    which leaves the new state cut where its partitioner computed it."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    from repro_torch.launch.mesh import local_shape_and_offset
+    from repro_torch.launch.mesh import group_of
 
+    x = shard_hint(x, "batch", None, "embed")
     mesh = x.device_mesh
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if pl.is_shard(0) else Replicate() for pl in x.placements]
-    local = {k: t.redistribute(mesh, whole).to_local(grad_placements=grad) for k, t in p.items()}
+    cut = [m for m, pl in enumerate(p["w_x"].placements) if pl.is_shard()]
+    rows = [m for m, pl in enumerate(x.placements) if pl.is_shard(0)]
+    if len(cut) > 1 or any(not x.placements[m].is_replicate() for m in cut):
+        raise NotImplementedError(f"a Mamba2 block cut over {cut} on input {x.placements}")
+
+    def grads(pls):
+        return [pl if pl.is_shard() else Partial() if m in rows + cut else Replicate()
+                for m, pl in enumerate(pls)]
+
+    local = {k: t.to_local(grad_placements=grads(t.placements)) for k, t in p.items()}
+    xl = x.to_local(grad_placements=[Partial() if m in cut else pl
+                                     for m, pl in enumerate(x.placements)])
+    group = group_of(mesh, (mesh.mesh_dim_names[cut[0]],)) if cut else None
     kernel = uses_kernels(cfg)
     if stack is None:
-        out, _ = mamba2_block(local, x.to_local(), cfg, kernel=kernel)
+        out, _ = mamba2_block(local, xl, cfg, kernel=kernel, norm_group=group)
     else:
-        xl = x.to_local()
-        row0 = local_shape_and_offset(x.shape, mesh, x.placements)[1][0]
-        mine = {}
-        for k, t in stack.items():
-            at = row0 - local_shape_and_offset(t.shape, t.device_mesh, t.placements)[1][1]
-            mine[k] = t.to_local()[:, at:at + xl.shape[0]]
+        if cut:
+            stack["ssm"] = _cut_over(stack["ssm"], 2, cut[0])
+            stack["conv_x"] = _cut_over(stack["conv_x"], 3, cut[0])
+        mine = {k: t.to_local() for k, t in stack.items()}
+        if mine["ssm"].shape[1] != xl.shape[0]:
+            raise NotImplementedError(f"the state's batch {stack['ssm'].placements} is not "
+                                      f"laid out as the block's input {x.placements}")
         out, new_state = mamba2_block(
             local, xl, cfg, state=layer_state(mine, i) if cont else None,
-            kernel=kernel, ssm_out=mine["ssm"][i])
+            kernel=kernel, ssm_out=mine["ssm"][i], norm_group=group)
         store_state(mine, i, new_state)
-    return DTensor.from_local(out, mesh, x.placements, run_check=False, shape=x.shape,
-                              stride=x.stride())
+    pls = [Partial() if m in cut else pl for m, pl in enumerate(x.placements)]
+    out = DTensor.from_local(out, mesh, pls, run_check=False, shape=x.shape, stride=x.stride())
+    return shard_hint(out, "batch", None, "embed")
+
+
+def _cut_over(t, dim: int, m: int):
+    """DTensor ``t``, whole over mesh dim ``m``, cut along ``dim`` over it:
+    each rank keeps a copy of its part of its local tensor (no
+    collective).  Already cut so: ``t``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if t.placements[m] == Shard(dim):
+        return t
+    if not t.placements[m].is_replicate():
+        raise NotImplementedError(f"{t.placements}: cut dim {dim} over mesh dim {m}")
+    n, r = t.device_mesh.size(m), t.device_mesh.get_local_rank(m)
+    loc = t.to_local()
+    size = loc.shape[dim] // n
+    part = loc.narrow(dim, r * size, size).contiguous()
+    pls = [Shard(dim) if k == m else pl for k, pl in enumerate(t.placements)]
+    return DTensor.from_local(part, t.device_mesh, pls, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def train_forward(params, batch, cfg: ModelConfig):

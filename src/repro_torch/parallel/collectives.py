@@ -6,7 +6,9 @@ gradient on each of those ranks.  So:
 
 * :func:`all_reduce` (the reference's ``psum`` of partial sums into a
   replicated value) sums in the forward pass and passes the gradient
-  through unchanged;
+  through unchanged, or sums it too (``reduce_grad=True``: each rank used
+  the sum for its own part of the work, as a norm over a dim cut between
+  the ranks does);
 * :func:`all_to_all` sends block ``j`` of dim 0 to peer ``j`` and its
   gradient back the same way;
 * :func:`all_gather` joins the group's shards along a dim: with
@@ -104,12 +106,13 @@ def _own_part(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, reduce_grad):
+        ctx.group, ctx.reduce_grad = group, reduce_grad
         return _sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return (_sum(g, ctx.group) if ctx.reduce_grad else g), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -147,10 +150,13 @@ class _Mean(torch.autograd.Function):
         return g / ctx.n, None
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, *, reduce_grad: bool = False) -> torch.Tensor:
     """Σ over ``group``; the gradient passes through (the sum is
-    replicated, so each rank already holds its whole gradient)."""
-    return _AllReduce.apply(x, group)
+    replicated, so each rank already holds its whole gradient), or, with
+    ``reduce_grad=True`` (each rank uses the sum for its own part of the
+    work only, so each holds a partial gradient), is summed over the group
+    too."""
+    return _AllReduce.apply(x, group, reduce_grad)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -10,6 +10,8 @@ redistributes it to the placements its logical names give — the port's
 counterpart of ``with_sharding_constraint``: where the reference lets the
 partitioner place a collective, the hint is where DTensor runs it (a
 row-parallel product's partial sums are all-reduced at the hint after it).
+As that constraint's transpose does, the hint also lays out the gradient
+that reaches it: a partial sum arriving there is reduced at the hint.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ class ParallelContext:
             axes.append(self.rules.get(name) if name is not None else None)
         return P(*axes)
 
+    def with_rules(self, **rules: MeshAxes) -> "ParallelContext":
+        """This context with the given logical rules replaced."""
+        return ParallelContext(self.mesh, {**self.rules, **rules}, ep_axes=self.ep_axes,
+                               dp_axes=self.dp_axes, tp_axis=self.tp_axis)
+
     # mesh axis sizes the MoE layer needs for static shapes
     def axis_size(self, names: Union[str, Tuple[str, ...]]) -> int:
         if self.mesh is None:
@@ -87,16 +94,51 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+class _GradHint(torch.autograd.Function):
+    """The identity on a DTensor whose gradient takes the placements
+    ``want``: the transpose of ``with_sharding_constraint``, which
+    constrains the cotangent to the same sharding.  A gradient that is a
+    partial sum is all-reduced (or reduce-scattered) here, once, so that
+    the products before the hint meet a gradient laid out like their
+    activations (DTensor would resolve a partial sum against a weight cut
+    on the same mesh dim by gathering the weight)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.mesh, ctx.want = x.device_mesh, want
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g) or g.device_mesh != ctx.mesh:
+            # a gradient that is not laid out on the hint's mesh has no
+            # placements to redistribute: treating it as whole on every rank
+            # would be a guess
+            raise TypeError(f"shard_hint: the gradient arrived as {type(g).__name__} "
+                            f"{getattr(g, 'placements', '')}, not as a DTensor on the "
+                            f"hint's mesh; it cannot take the placements {ctx.want}")
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        return g, None
+
+
+def grad_as(x, want) -> torch.Tensor:
+    """DTensor ``x`` itself, its gradient redistributed to the placements
+    ``want`` in the backward pass (:class:`_GradHint`)."""
+    return _GradHint.apply(x, tuple(want)) if x.requires_grad else x
+
+
 def shard_hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Redistribute ``x`` to the placements of its logical axis names; a
-    no-op without a context, on an abstract mesh, or on a plain tensor."""
+    """Redistribute ``x`` to the placements of its logical axis names, and
+    its gradient to the same placements in the backward pass; a no-op
+    without a context, on an abstract mesh, or on a plain tensor."""
     ctx = _current()
     if ctx is None or ctx.mesh is None or ctx.mesh.device_mesh is None or not is_dtensor(x):
         return x
-    want = placements(ctx.spec_for(logical), ctx.mesh)
-    if tuple(x.placements) == tuple(want):
-        return x
-    return x.redistribute(ctx.mesh.device_mesh, want)
+    want = tuple(placements(ctx.spec_for(logical), ctx.mesh))
+    if tuple(x.placements) != want:
+        x = x.redistribute(ctx.mesh.device_mesh, want)
+    return grad_as(x, want)
 
 
 # Default logical-axis rule set used by the launcher: batch → data parallel,

@@ -23,7 +23,8 @@ from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step, restor
                                           save_checkpoint)
 from repro_torch.train.elastic import elastic_resume
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, decay_mask, init_opt_state
-from repro_torch.train.step import make_train_step, stacked_groups, value_and_grad
+from repro_torch.train.step import (make_train_pieces, make_train_step, stacked_groups,
+                                    value_and_grad)
 from repro_torch.train.tree import leaves, tree_map
 
 CPU = torch.device("cpu")
@@ -334,3 +335,116 @@ def single_step(model, params, batch, opt_cfg, *, aux_shards=1, opt=None):
                                  decay=decay_mask(params, stacked_groups(model.cfg)))
     return p2, o2, {"loss": loss, "grad_norm": gnorm}
 
+
+
+@contextlib.contextmanager
+def weight_gathers(weights):
+    """Record each redistribution that gathers one of ``weights`` (``{name:
+    DTensor}``): one whose source is cut on a mesh dim where its target is
+    not.  DTensor runs every redistribution — an explicit one, and those
+    its operators make to meet their sharding rules — through
+    ``redistribute_local_tensor``; a call on a weight's own local storage
+    is a redistribution of that weight.  Yields the list of names."""
+    from torch.distributed.tensor import _api, _dispatch, _redistribute
+
+    watched = {w.to_local().untyped_storage()._cdata: name for name, w in weights.items()}
+    seen = []
+    inner = _redistribute.redistribute_local_tensor
+
+    def spy(local, current, target, *args, **kwargs):
+        name = watched.get(local.untyped_storage()._cdata)
+        if name is not None and any(c.is_shard() and not t.is_shard()
+                                    for c, t in zip(current.placements, target.placements)):
+            seen.append(name)
+        return inner(local, current, target, *args, **kwargs)
+
+    mods = (_api, _dispatch, _redistribute)
+    for mod in mods:
+        mod.redistribute_local_tensor = spy
+    try:
+        yield seen
+    finally:
+        for mod in mods:
+            mod.redistribute_local_tensor = inner
+
+
+def mamba_weight_gathers(rank, world, arch, cfg_kw, init_np, batch, steps):
+    """Prefill, ``steps`` greedy decode steps and one train step of
+    ``arch`` on the (2 × 2) debug mesh, each watched by
+    :func:`weight_gathers` over every Mamba weight: the names each gathered
+    (none, where the trunk runs on each rank's own shards), and, as a check
+    that the watch sees a gather, those that ``full_tensor`` of the first
+    layer's ``w_x`` records.  The train step is watched in two pieces: the
+    model's forward and backward (``train``) and the update (``update``,
+    where ZeRO-1 moves each weight into its moments' layout)."""
+    from repro_torch.parallel.vocab import greedy_tokens
+    from repro_torch.train.tree import leaves_with_paths
+
+    b, s = batch["tokens"].shape
+    cfg, mesh, ctx, params = _setup(arch, cfg_kw, init_np, b, world)
+    key = "mamba_layers" if cfg.family == "hybrid" else "layers"
+    mamba = {"/".join(map(str, path)): w for path, w in leaves_with_paths(params[key])
+             if "mamba" in path}
+    model = build_model(cfg)
+    prompt = {"tokens": distribute(torch.as_tensor(batch["tokens"]), mesh, ("data", None))}
+    out = {"watched": len(mamba)}
+    with parallel_context(ctx):
+        with torch.no_grad(), weight_gathers(mamba) as seen:
+            logits, caches = model.prefill(params, prompt, s + steps)
+        out["prefill"] = list(seen)
+        with torch.no_grad(), weight_gathers(mamba) as seen:
+            for t in range(steps):
+                tok = greedy_tokens(logits).full_tensor().reshape(b, 1)
+                nxt = {"tokens": distribute(tok, mesh, ("data", None))}
+                logits, caches = model.decode_step(params, nxt, caches,
+                                                   torch.tensor(s + t, dtype=torch.int32))
+        out["decode"] = list(seen)
+        start, micro, finish = make_train_pieces(model, AdamWConfig(**OPT))
+        opt = init_opt_state(params, mesh=mesh)
+        with weight_gathers(mamba) as seen:
+            acc = micro(params, start(params, batch), 0)
+        out["train"] = list(seen)
+        with weight_gathers(mamba) as seen:
+            finish(params, opt, acc)
+        out["update"] = list(seen)
+        first = next(n for n in mamba if n.endswith("w_x"))
+        with weight_gathers(mamba) as seen:
+            mamba[first].full_tensor()
+        out["probe"] = list(seen)
+    return out if rank == 0 else None
+
+
+def kernel_serve_heads(rank, world, cases):
+    """:func:`serve_steps` of each case on its own, with the wrappers'
+    calls counted and the head count of each SSD-scan call: (the record,
+    the calls, ``{H: calls}``) for each case on rank 0."""
+    from repro_torch.kernels import ssd_scan
+
+    out = []
+    for case in cases:
+        heads = collections.Counter()
+        inner = ssd_scan.ssd_scan
+
+        def scan(x, *args, **kwargs):
+            heads[x.shape[2]] += 1
+            return inner(x, *args, **kwargs)
+
+        ssd_scan.ssd_scan = scan
+        try:
+            with wrapper_calls() as calls:
+                (rec,) = serve_steps(rank, world, [case]) or [None]
+        finally:
+            ssd_scan.ssd_scan = inner
+        out.append((rec, dict(calls), dict(heads)))
+    return out if rank == 0 else None
+
+
+def mesh_ssm_runs(rank, world, serve_cases, train_cases, gather_cases, kernel_cases):
+    """The rank side of ``test_torch_mesh_ssm.py`` in one group of ranks:
+    :func:`serve_steps`, :func:`train_steps`, :func:`mamba_weight_gathers`
+    (one each of ``gather_cases``) and :func:`kernel_serve_heads`."""
+    out = {"serve": serve_steps(rank, world, serve_cases),
+           "train": train_steps(rank, world, train_cases),
+           "gathers": [mamba_weight_gathers(rank, world, *c) for c in gather_cases],
+           "kernels": kernel_serve_heads(rank, world, kernel_cases)}
+    return out if rank == 0 else None
