@@ -297,6 +297,31 @@ Phases (any failure exits non-zero; nothing is caught):
    counter's count of the rest of the step plus each launch's work
    (``kernel_work``: ``flash_work`` and ``rms_work`` on its inputs).
 
+16. the port's examples (``repro_torch.examples``, the counterparts of
+   ``examples/*.py``), each through its ``main()`` as ``python -m`` runs
+   it.  ``[example-quickstart]`` and ``[example-placement]``: child
+   processes started with the script beside the dry-run's queues (niced,
+   each in a session of its own, stopped with them before the first
+   host-timed phase, resumed and collected at the end): exit 0,
+   quickstart's graph (307 operators, 386 flows, 258 after GCOF), msct,
+   getf and round_robin at the CPU's figures (818.006 / 570.399 /
+   2773.116 ms; ``QUICKSTART_MS``), the six placement rows finite with msct
+   and getf at the CPU's (``PLACEMENT_MS``), placeto's policy on the card;
+   moirai's figures and whether it is <= min(msct, getf) are printed, not
+   held (its MILP runs to a wall-clock limit on a shared host).
+   ``[example-train]``: ``train_demo --steps 300 --d-model 512 --layers
+   12`` (fp32) in a child process beside ``[train]``, in the kernels'
+   build window: every loss finite, the last below the first; losses,
+   wall time, tokens/s, peak memory.  ``[example-serve]`` (after the parity
+   runs): ``serve_demo.main()`` at its defaults (smoke llama, D 32 — the
+   flash kernel's head-dim-32 instance, held in ``[check]`` at the smoke
+   heads and the demo's own calls —, fp32, one modeled H100), every
+   forward on the flash and RMSNorm kernels (``check_forwards``); the same
+   demo under ``plain_kernels()`` with identical tokens; ``demo()`` on
+   ``h100_cluster(2, heterogeneous=True)`` mapped onto the card, request
+   99 after device 0 fails equal to a fresh engine's; ``demo()`` at full
+   width (16 layers, bf16), every request served on the kernels.
+
 Each phase's wall time is printed as a ``[phase]`` line.
 
 The line before last is one JSON object ``{"kernels": [...]}``, and the last
@@ -426,6 +451,9 @@ GEMMA = "gemma-7b"
 GEMMA2 = "gemma2-27b"
 SEAMLESS = "seamless-m4t-large-v2"
 VLM = "qwen2-vl-7b"
+# llama3.2-1b at smoke size (D 32, 4 / 2 heads, fp32): the serve demo's
+# config ([example-serve])
+SMOKE = "llama3.2-1b-smoke"
 # phase tags: [serve], [serve-moe], ...
 TAGS = {LLAMA: "", MOE: "-moe", QWEN3: "-qwen3", GEMMA: "-gemma", GEMMA2: "-gemma2"}
 # the engine runs and traces of [serve-moe], [serve-moe-paged],
@@ -505,6 +533,7 @@ def flash_inputs(dev, dtype, *, sq, depths, q_lens, sk=2048, h=32, kv=8, d=64, s
 
 # attention heads (query, KV) and head dim of each served model
 HEADS = {LLAMA: dict(h=32, kv=8, d=64), MOE: dict(h=16, kv=16, d=128),
+         SMOKE: dict(h=4, kv=2, d=32),
          ZAMBA: dict(h=32, kv=32, d=80), QWEN3: dict(h=40, kv=8, d=128),
          GEMMA: dict(h=16, kv=16, d=256), GEMMA2: dict(h=32, kv=16, d=128),
          SEAMLESS: dict(h=16, kv=16, d=64), VLM: dict(h=28, kv=4, d=128)}
@@ -806,14 +835,26 @@ def check_flash_call(dev, case, inp, extra, errs, key, *, on_decode=None, paged=
 # their error keys (llama's carry none)
 CHECK_HEADS = ((LLAMA, "d64", ""), (MOE, "d128", "d128_"), (QWEN3, "d128 GQA 40/8", "d128g5_"),
                (ZAMBA, "d80", "d80_"), (GEMMA, "d256", "d256_"),
-               (SEAMLESS, "d64 16/16", "d64mha_"))
+               (SEAMLESS, "d64 16/16", "d64mha_"), (SMOKE, "d32 4/2", "d32_"))
+
+
+def demo_flash_cases(dev, dtype) -> dict:
+    """The serve demo's flash calls ([example-serve]: smoke llama, 4 / 2
+    heads of 32, 4 slots, max_len 128): a 4-token prompt's prefill at
+    depth 0 beside idle rows, and decode rows at depths up to 11."""
+    kw = dict(sk=128, **HEADS[SMOKE])
+    return {"demo_prefill": flash_inputs(dev, dtype, sq=4, depths=[0, 0, 0, 0],
+                                         q_lens=[4, 4, 0, 4], **kw),
+            "demo_decode": flash_inputs(dev, dtype, sq=1, depths=[4, 7, 11, 0],
+                                        q_lens=[1, 1, 1, 0], **kw)}
 
 
 def phase_check(dev) -> dict:
     """Every flash case of ``flash_cases`` and ``paged_cases`` at each served
     head configuration (llama's D 64 GQA 32 / 8; qwen2-moe's D 128 and
     qwen3's GQA 40 / 8; zamba2's D 80; gemma-7b's D 256; seamless's causal
-    decoder self-attention, D 64 at 16 / 16), and a ragged chunk (Sq 100)
+    decoder self-attention, D 64 at 16 / 16; the smoke configs' D 32 at 4 /
+    2, and the serve demo's own calls), and a ragged chunk (Sq 100)
     at each head dim, dense and paged (pages of 16, 64 and 48 tokens), fp32
     and bf16, each call held by ``check_flash_call``; zamba2's shared block
     as one rank of [mesh-ssm] runs it (``mesh_ssm_flash_cases``).  Then the
@@ -834,8 +875,14 @@ def phase_check(dev) -> dict:
                 log(f"[check] flash_attention_paged {tag} {case} {dt}: max abs err {err:.3e}; "
                     "equal to the dense kernel on the gathered view, two launches "
                     "bit-identical, the trash page changes nothing")
+        for case, inp in demo_flash_cases(dev, dtype).items():
+            err = check_flash_call(dev, f"flash d32 {case}", inp, {}, errs,
+                                   ("flash_attention", f"d32_{case}", dtype))
+            log(f"[check] flash_attention d32 4/2 (the serve demo's) {case} {dt} q "
+                f"{tuple(inp['q'].shape)} k {tuple(inp['k'].shape)}: max abs err {err:.3e}, two "
+                "launches bit-identical")
         for arch, tag in ((LLAMA, "d64"), (ZAMBA, "d80"), (MOE, "d128"), (GEMMA, "d256"),
-                          (SEAMLESS, "d64mha")):
+                          (SEAMLESS, "d64mha"), (SMOKE, "d32")):
             dense_inp, paged_inp = ragged_chunk_cases(dev, dtype, arch)
             err = check_flash_call(dev, f"flash {tag} sq100", dense_inp, {}, errs,
                                    ("flash_attention", f"{tag}_sq100", dtype))
@@ -5222,6 +5269,235 @@ def phase_dryrun_card(dev) -> dict:
 
 
 
+# ------------------------------------------------------------ the examples
+# repro_torch.examples, as a user runs them (``python -m``): each module's
+# main() in a child process of its own, in a session of its own, its output
+# in ``<out>/<name>.log`` and, last, one ``[example-result]`` JSON line.
+# The two planning examples need no kernel and spend ~150 s of host time in
+# the MILP: like the dry-run's queues they start with the script, niced,
+# are stopped before the first host-timed phase and collected at the end;
+# their MILP runs to a wall-clock limit on a shared host, so moirai's
+# figures are printed, not held.  [example-train] launches no kernel
+# either: it runs beside [train], in the kernels' build window
+_EXAMPLE = """
+import importlib, json, os, sys, time
+if sys.argv[3] == "nice":
+    os.nice(19)
+import torch
+name, argv = sys.argv[1], json.loads(sys.argv[2])
+t0 = time.perf_counter()
+out = importlib.import_module(name).main(argv)
+res = {"run_s": time.perf_counter() - t0, "cuda": torch.cuda.is_initialized()}
+res["peak_bytes"] = torch.cuda.max_memory_allocated() if res["cuda"] else 0
+if name.endswith(".quickstart"):
+    res.update(graph=[len(out["graph"]), out["graph"].num_edges()], coarse=len(out["coarse"]),
+               results={m: {"ms": mk * 1e3, "via": r.method, "status": r.status,
+                            "gen_s": r.solve_time} for m, (r, mk) in out["results"].items()})
+elif name.endswith(".heterogeneous_placement"):
+    res["rows"] = [[c, g, {m: {"ms": mk * 1e3, "via": r.method, "gen_s": r.solve_time}
+                           for m, (r, mk) in row.items()}] for (c, g), row in out.items()]
+else:
+    from repro_torch.train.tree import leaves
+    res.update({k: out[k] for k in ("first_loss", "final_loss", "steps_run", "wall_s", "losses",
+                                    "step_s")})
+    res["params"] = sum(t.numel() for t in leaves(out["params"]))
+print("[example-result] " + json.dumps(res), flush=True)
+"""
+_EX = "repro_torch.examples."
+PLANNING_EXAMPLES = {"example-quickstart": (_EX + "quickstart", []),
+                     "example-placement": (_EX + "heterogeneous_placement", [])}
+# the reference docstring's "≈100M params" run (fp32, the smoke config's
+# dtype, at the demo's widths)
+EXAMPLE_TRAIN = ["--steps", "300", "--d-model", "512", "--layers", "12"]
+# the heuristics' makespans (ms) as the CPU prints them: the reference's
+# examples/quickstart.py and examples/heterogeneous_placement.py, which
+# tests/test_torch_examples.py holds the port to exactly
+QUICKSTART_MS = {"msct": "818.006", "getf": "570.399", "round_robin": "2773.116"}
+PLACEMENT_MS = {
+    ("inter-server", "gpt3-330m"): ("355.06", "267.43"),
+    ("inter-server", "swin-1.8b"): ("2084.34", "1646.79"),
+    ("inter-server", "af2-87m"): ("6.91", "6.86"),
+    ("intra-server", "gpt3-330m"): ("164.95", "164.91"),
+    ("intra-server", "swin-1.8b"): ("2080.36", "1361.49"),
+    ("intra-server", "af2-87m"): ("3.52", "4.30"),
+}
+
+
+def start_example(name, module, argv, out: Path, *, nice: bool) -> subprocess.Popen:
+    """``module``'s main(argv) in a child process (see ``_EXAMPLE``)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    with open(out / f"{name}.log", "w") as f:
+        p = subprocess.Popen([sys.executable, "-c", _EXAMPLE, module, json.dumps(argv),
+                              "nice" if nice else "-"], cwd=ROOT, env=env, stdout=f,
+                             stderr=subprocess.STDOUT, start_new_session=True)
+    log(f"[{name}] started: python -m {module} {' '.join(argv)}".rstrip())
+    return p
+
+
+def example_result(name, p: subprocess.Popen, out: Path) -> dict:
+    """Wait for the example, fail unless it exited 0, echo what it printed
+    and return its ``[example-result]``."""
+    t0 = time.perf_counter()
+    rc = p.wait()
+    text = (out / f"{name}.log").read_text()
+    if rc != 0:
+        raise AssertionError(f"[{name}] exited {rc}:\n{text[-3000:]}")
+    lines = text.splitlines()
+    res = json.loads(next(x for x in reversed(lines) if x.startswith("[example-result] "))
+                     .split(" ", 1)[1])
+    for line in lines:
+        if line.strip() and not line.startswith("[example-result] "):
+            log(f"[{name}] | {line}")
+    log(f"[{name}] exit 0 after {res['run_s']:.1f}s in main() ({time.perf_counter() - t0:.1f}s "
+        "of waiting)")
+    return res
+
+
+def phase_example_quickstart(p, out: Path) -> dict:
+    """[example-quickstart]: the graph and GCOF counts, and msct, getf and
+    round_robin at the CPU's figures; no card touched (host code only)."""
+    res = example_result("example-quickstart", p, out)
+    if (res["graph"], res["coarse"]) != ([307, 386], 258):
+        raise AssertionError(f"[example-quickstart] graph {res['graph']}, {res['coarse']} after "
+                             "GCOF; the reference's is 307 operators, 386 flows, 258")
+    got = {m: f"{r['ms']:.3f}" for m, r in res["results"].items()}
+    if any(got[m] != want for m, want in QUICKSTART_MS.items()):
+        raise AssertionError(f"[example-quickstart] heuristic makespans {got}, the CPU's "
+                             f"{QUICKSTART_MS}")
+    if res["cuda"]:
+        raise AssertionError("[example-quickstart] touched the card")
+    mo = res["results"]["moirai"]
+    best = min(res["results"][m]["ms"] for m in ("msct", "getf"))
+    log(f"[example-quickstart] msct/getf/round_robin {got['msct']}/{got['getf']}/"
+        f"{got['round_robin']} ms = the CPU's; moirai {mo['ms']:.3f} ms via {mo['via']} "
+        f"({mo['status']}, gen {mo['gen_s']:.2f}s), <= min(msct, getf) {mo['ms'] <= best}")
+    return res
+
+
+def phase_example_placement(p, out: Path) -> dict:
+    """[example-placement]: six rows (two clusters x three paper graphs),
+    every makespan finite, msct and getf at the CPU's figures, placeto's
+    policy on the card."""
+    res = example_result("example-placement", p, out)
+    rows = {(c, g): row for c, g, row in res["rows"]}
+    if sorted(rows) != sorted(PLACEMENT_MS):
+        raise AssertionError(f"[example-placement] rows {sorted(rows)}")
+    for key, row in rows.items():
+        if not all(math.isfinite(r["ms"]) for r in row.values()):
+            raise AssertionError(f"[example-placement] {key}: a makespan is not finite: {row}")
+        got = (f"{row['msct']['ms']:.2f}", f"{row['getf']['ms']:.2f}")
+        if got != PLACEMENT_MS[key]:
+            raise AssertionError(f"[example-placement] {key}: msct, getf {got}, the CPU's "
+                                 f"{PLACEMENT_MS[key]}")
+        best = min(row["msct"]["ms"], row["getf"]["ms"])
+        log(f"[example-placement] {key[0]} {key[1]}: msct, getf {got[0]}, {got[1]} ms = the "
+            f"CPU's; placeto {row['placeto']['ms']:.2f} ms (gen {row['placeto']['gen_s']:.2f}s); "
+            f"moirai {row['moirai']['ms']:.2f} ms via {row['moirai']['via']} (gen "
+            f"{row['moirai']['gen_s']:.2f}s), <= min(msct, getf) {row['moirai']['ms'] <= best}")
+    if not (res["cuda"] and res["peak_bytes"] > 0):
+        raise AssertionError("[example-placement] placeto's policy never reached the card")
+    log(f"[example-placement] placeto's policy on the card: peak {res['peak_bytes']} bytes")
+    return res
+
+
+def phase_example_train(p, out: Path) -> dict:
+    """[example-train]: the train demo at the "≈100M params" size on the
+    card; every loss finite, the last below the first."""
+    res = example_result("example-train", p, out)
+    losses = res["losses"]
+    if res["steps_run"] != 300 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[example-train] {res['steps_run']} steps, losses {losses}")
+    if not res["final_loss"] < res["first_loss"]:
+        raise AssertionError(f"[example-train] loss {res['first_loss']} -> {res['final_loss']}")
+    toks = 8 * 128
+    med = float(np.median(res["step_s"][1:]))
+    log(f"[example-train] {res['params']} parameters; loss {res['first_loss']:.4f} -> "
+        f"{res['final_loss']:.4f} over {res['steps_run']} steps; train() wall {res['wall_s']:.1f}s = "
+        f"{res['steps_run'] * toks / res['wall_s']:.1f} tokens/s, step s median {med:.4f} "
+        f"({toks / med:.1f} tokens/s), peak {res['peak_bytes'] / 1e9:.2f} GB on the card")
+    return res
+
+
+def demo_served(reqs, what) -> list:
+    if not all(r.done and len(r.out_tokens) == 8 for r in reqs):
+        raise AssertionError(f"{what}: a request was not served: "
+                             f"{[(r.rid, r.out_tokens) for r in reqs]}")
+    return [r.out_tokens for r in reqs]
+
+
+def phase_example_serve(dev) -> dict:
+    """[example-serve]: ``serve_demo.main()`` at its defaults (smoke llama,
+    fp32, one modeled H100), every forward on the flash and RMSNorm
+    kernels; the same demo under ``plain_kernels()`` gives identical
+    tokens; ``demo()`` on ``h100_cluster(2, heterogeneous=True)`` mapped
+    onto the card, where request 99 after device 0 fails gets a fresh
+    engine's tokens; then ``demo()`` at full width (16 layers, bf16)."""
+    from repro_torch.examples import serve_demo
+
+    cfg = serve.serving_config(LLAMA, smoke=True)
+    reset_counts()
+    with EngineForwards() as fl:
+        out = serve_demo.main([])
+    torch.cuda.synchronize(dev)
+    main_counts = counts()
+    check_forwards(fl.of(), cfg, "[example-serve] main()")
+    require(main_counts, DENSE_PATH, "[example-serve] main()")
+    want = demo_served(out["requests"], "[example-serve] main()")
+    log(f"[example-serve] main(): {len(fl.steps)} forwards, each on the kernels; launches "
+        f"{main_counts}")
+    del out
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    with plain_kernels():
+        reqs = serve_demo.demo_requests()
+        serve_demo.demo(cfg, params, h100_cluster(1, heterogeneous=True), [dev], reqs)
+    if demo_served(reqs, "[example-serve] plain") != want:
+        raise AssertionError("[example-serve] fp32 tokens differ between the kernels and the "
+                             "plain versions")
+    log("[example-serve] fp32 tokens of the 8 requests identical, kernels vs plain_kernels()")
+
+    reset_counts()
+    with EngineForwards() as fl:
+        reqs = serve_demo.demo_requests()
+        res = serve_demo.demo(cfg, params, h100_cluster(2, heterogeneous=True), [dev], reqs)
+    check_forwards(fl.of(), cfg, "[example-serve] two modeled devices")
+    r99 = res["after_failure"]
+    fresh = ServingEngine(cfg, params, h100_cluster(1, heterogeneous=True), devices=[dev],
+                          slots=4, max_len=128, eos_id=-1)
+    alone = Request(rid=99, prompt=list(r99.prompt), max_new_tokens=8)
+    fresh.submit(alone)
+    fresh.run_until_drained()
+    if demo_served(reqs, "[example-serve] h100-x2") != want or res["engine"].failed_devices != [0]:
+        raise AssertionError("[example-serve] h100-x2: tokens differ from main()'s or device 0 "
+                             "did not fail")
+    if demo_served([r99], "[example-serve] request 99") != [alone.out_tokens]:
+        raise AssertionError(f"[example-serve] request 99 after the replan {r99.out_tokens}, a "
+                             f"fresh engine's {alone.out_tokens}")
+    log(f"[example-serve] h100-x2 (odd device at half speed) on one card: device 0 failed, "
+        f"replanned; request 99 -> {r99.out_tokens}, a fresh engine's; {len(fl.steps)} forwards "
+        "on the kernels")
+    del res, fresh, params
+    free_card()
+
+    full = serve.serving_config(LLAMA, smoke=False)
+    params = build_model(full).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with EngineForwards() as fl:
+        reqs = serve_demo.demo_requests()
+        serve_demo.demo(full, params, h100_cluster(1, heterogeneous=True), [dev], reqs)
+    torch.cuda.synchronize(dev)
+    full_counts = counts()
+    check_forwards(fl.of(), full, "[example-serve] full width")
+    require(full_counts, DENSE_PATH, "[example-serve] full width")
+    demo_served(reqs, "[example-serve] full width")
+    log(f"[example-serve] full width ({full.n_layers} layers, {full.dtype}): 8 requests served "
+        f"in {time.perf_counter() - t0:.1f}s incl. the plan, {len(fl.steps)} forwards, launches "
+        f"{full_counts}")
+    del params
+    free_card()
+    return {"main": main_counts, "full": full_counts}
+
+
 def phase_time(dev) -> dict:
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)   # > 50 MB L2
     rows = {}
@@ -5246,6 +5522,14 @@ def phase_time(dev) -> dict:
         log(f"[time] {name} {case} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
             f"kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
+    # the serve demo's D 32, in its dtype (fp32, the smoke configs')
+    d32 = {}
+    time_flash(dev, flush, d32, SMOKE, "d32_", torch.float32)
+    for (name, case), r in d32.items():
+        log(f"[time] {name} {case} fp32: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']} ms {r['library']}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), kernel/bound {r['ms'] / r['bound_ms']:.1f}x")
+    rows.update(d32)
     time_gg(dev, flush, rows, dtype)
     time_ssd(dev, flush, rows, dtype)
     del flush
@@ -5362,12 +5646,24 @@ def main() -> int:
     atexit.register(shutil.rmtree, dry_out, True)
     jobs = start_dryrun(dry_out)
     atexit.register(stop_dryrun, jobs)
+    # so do the two planning examples (placeto's policy on the card)
+    ex_out = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    atexit.register(shutil.rmtree, ex_out, True)
+    examples = {name: start_example(name, module, argv, ex_out, nice=True)
+                for name, (module, argv) in PLANNING_EXAMPLES.items()}
+    atexit.register(stop_dryrun, examples)
     # the kernels build while the phases that launch none run: the trainer
-    # (it refuses the forward-only kernels), placeto and the calibration
+    # (it refuses the forward-only kernels) with the train demo beside it,
+    # placeto and the calibration
     join_build = start_build()
+    train_demo = start_example("example-train", _EX + "train_demo",
+                               EXAMPLE_TRAIN + ["--out", str(ex_out / "train_demo")], ex_out,
+                               nice=False)
+    atexit.register(stop_dryrun, {"example-train": train_demo})
     timed(phase_train, dev)
     timed(phase_placeto, dev)
     timed(phase_calibrate, dev)
+    timed(phase_example_train, train_demo, ex_out)
     join_build()
     # the sharded trainer's ranks start now: the kernels are built
     free_card()
@@ -5406,7 +5702,11 @@ def main() -> int:
     free_card()
     timed(phase_parity_train, dev)
     free_card()
+    example_serve = timed(phase_example_serve, dev)
     pause_dryrun(jobs)
+    live = signal_dryrun(examples, signal.SIGSTOP)
+    log(f"[examples] {len(live)} planning example(s) still running ({', '.join(live) or 'none'})"
+        ": stopped until the end")
     served = timed(phase_serve, dev)
     served_paged = timed(phase_serve_paged, dev)
     served_spec = timed(phase_serve_spec, dev)
@@ -5427,7 +5727,10 @@ def main() -> int:
     free_card()
     times = timed(phase_time, dev)
     timed(phase_dryrun_card, dev)
+    signal_dryrun(examples, signal.SIGCONT)
     timed(phase_dryrun, jobs, dry_out)
+    timed(phase_example_quickstart, examples["example-quickstart"], ex_out)
+    timed(phase_example_placement, examples["example-placement"], ex_out)
 
     # the split-KV decode kernel's numbers at each head dim, dense and paged
     clis = {"d64": ("", served["cli"], served_paged["cli"]),
@@ -5491,6 +5794,18 @@ def main() -> int:
                 "bound_by": t256["bound_by"], "library_ms": t256["library_ms"],
                 "max_abs_err": errs[(name, "d256_" + err_case, torch.bfloat16)],
             }
+            if not name.endswith("paged"):
+                # the head-dim-32 instance, on the serve demo's path (fp32)
+                t32 = times[(name, "d32_fused_chunk")]
+                row["d32"] = {
+                    "launches": example_serve["main"][name],
+                    "launches_from": "[example-serve] serve_demo.main()",
+                    "decode_launches": example_serve["main"][name + "_decode"],
+                    "ms": t32["ms"], "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
+                    "bound_by": t32["bound_by"], "library_ms": t32["library_ms"],
+                    "dtype": "float32",
+                    "max_abs_err": errs[(name, "d32_fused_chunk", torch.float32)],
+                }
             row["decode"] = decode[name]
             # this slice's paths: seamless (the encoder's and the
             # cross-attention's non-causal calls on the dense kernel; the
@@ -5544,6 +5859,12 @@ def main() -> int:
                                   (MAMBA, served_mamba), (ZAMBA, served_zamba),
                                   (SEAMLESS, served_encdec), (VLM, served_vlm))}
             row["launches_by_config"][SEAMLESS]["encode_launches"] = served_encdec["encode"][name]
+            row["launches_by_config"][SMOKE + " (serve demo, fp32)"] = {
+                "launches": example_serve["main"][name],
+                "rows_kernel": example_serve["main"]["rmsnorm_rows"]}
+            row["launches_by_config"][LLAMA + " (serve demo, full width)"] = {
+                "launches": example_serve["full"][name],
+                "rows_kernel": example_serve["full"]["rmsnorm_rows"]}
             # [mesh-ssm]: rank 0's bf16 zamba2 forwards, the gated norms off the kernel
             ssm0 = mesh_train["ssm"][0]["bf16"]["launches"]
             row["launches_by_config"][ZAMBA + " (2 x 2, heads cut)"] = {

@@ -1325,10 +1325,10 @@ int dispatch_rows(const void* q, const void* k, const void* v, void* out, void* 
                      softcap, k_len, stream);
 }
 
-// the instances built: head dim 64 (llama3.2-1b), 80 (zamba2-2.7b's shared
-// attention), 128 (qwen2-moe-a2.7b, qwen3-14b, gemma2-27b) and 256
-// (gemma-7b), each in fp32 and bf16; any other (D, dtype) returns
-// cudaErrorInvalidValue
+// the instances built: head dim 32 (every config's smoke size), 64
+// (llama3.2-1b), 80 (zamba2-2.7b's shared attention), 128 (qwen2-moe-a2.7b,
+// qwen3-14b, gemma2-27b) and 256 (gemma-7b), each in fp32 and bf16; any
+// other (D, dtype) returns cudaErrorInvalidValue
 template <typename Addr>
 int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, void* ws,
                       long long ws_floats, const int* q_offsets, const int* q_lens, int B, int Sq,
@@ -1337,6 +1337,8 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, vo
 #define FLASH_INSTANCE(T, DIM)                                                                \
   return dispatch_rows<T, DIM>(q, k, v, out, ws, ws_floats, q_offsets, q_lens, B, Sq, H, addr, \
                                KV, scale, causal, window, softcap, k_len, s)
+  if (D == 32 && dtype == 0) FLASH_INSTANCE(float, 32);
+  if (D == 32 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 32);
   if (D == 64 && dtype == 0) FLASH_INSTANCE(float, 64);
   if (D == 64 && dtype == 1) FLASH_INSTANCE(__nv_bfloat16, 64);
   if (D == 80 && dtype == 0) FLASH_INSTANCE(float, 80);
@@ -1357,9 +1359,9 @@ int dispatch_head_dim(const void* q, const void* k, const void* v, void* out, vo
 // call with Sq·H/KV <= dec_rows<D> rows (16, or 8 at D 256) and k_len over
 // one split (dec_split: 256, 128 or 64 keys by the bytes of a K row) needs
 // B·KV·ceil(k_len / split)·Sq·(H/KV)·(D + 2); any other call may pass
-// null.  Built for head dims 64 (llama3.2-1b), 80 (zamba2-2.7b), 128
-// (qwen2-moe-a2.7b, qwen3-14b, gemma2-27b) and 256 (gemma-7b); other head
-// dims come with the configs that need them.  Returns a cudaError_t (0 =
+// null.  Built for head dims 32 (the smoke configs), 64 (llama3.2-1b), 80
+// (zamba2-2.7b), 128 (qwen2-moe-a2.7b, qwen3-14b, gemma2-27b) and 256
+// (gemma-7b); other head dims come with the configs that need them.  Returns a cudaError_t (0 =
 // success); a shape the kernels do not take, or too small a workspace,
 // returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,

@@ -49,11 +49,12 @@ paged_decode_launches = 0
 noncausal_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the kernel is built for: llama3.2-1b's (64), zamba2-2.7b's
+# head dims the kernel is built for: the smoke configs' (32: the serve
+# demo and ``--smoke`` on the card), llama3.2-1b's (64), zamba2-2.7b's
 # shared attention (80), qwen2-moe-a2.7b's, qwen3-14b's and gemma2-27b's
 # (128) and gemma-7b's (256); the others come with the slices of the
 # configs that need them
-_HEAD_DIMS = (64, 80, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 # the decode kernel's most rows per (batch row, KV head)
 # (csrc/flash_attention.cu: DEC_ROWS)
 _DECODE_ROWS = 16

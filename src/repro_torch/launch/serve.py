@@ -22,8 +22,11 @@ the layout the engine serves from — the reference CLI keeps the config's
 ``scan_layers=True`` there and its executor refuses it), random weights
 from ``--seed``, and ``attention_impl="pallas"``: attention and every
 RMSNorm go through the port's CUDA kernels.  The modeled cluster is
-``h100_cluster(k)`` with ``k = --cluster-size`` or the number of visible
-cards.  The engine runs with the adaptive observe → derate → replan loop
+``h100_cluster(k, heterogeneous=True)`` with ``k = --cluster-size`` or the
+number of visible cards: every odd card at half the peak FLOPs and HBM
+bandwidth, as the reference's ``tpu_slice_cluster(k, heterogeneous=True)``.
+``--heterogeneous`` is on by default and no flag turns it off, a quirk kept
+from the reference (``store_true`` with ``default=True``).  The engine runs with the adaptive observe → derate → replan loop
 closed; after the run the CLI prints the straggler report, every adaptation
 decision and every committed replan.
 
@@ -266,7 +269,8 @@ def serve_replicas(args):
     return router, reqs
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The CLI's flags (the reference's, and ``--device`` and ``--seed``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -276,8 +280,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--method", default="moirai")
     ap.add_argument(
-        "--heterogeneous", action="store_true",
-        help="model every odd card of the cluster at half speed",
+        "--heterogeneous", action="store_true", default=True,
+        help="model every odd card of the cluster at half speed (always on: "
+        "the reference declares it store_true with default True, so no flag "
+        "turns it off there either)",
     )
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
@@ -401,6 +407,11 @@ def main(argv=None):
         "accelerators; raise it to plan multi-replica services on clusters "
         "bigger than this host)",
     )
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
     if args.replicas != "1":
         if args.draft:

@@ -380,11 +380,11 @@ def test_flash_kernel_fused_chunk_on_card(cuda_device, dtype, window, softcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 128, 256])
 def test_flash_kernel_head_dims_on_card(cuda_device, d):
-    """The kernel is built for head dims 64, 80, 128 and 256; the wrapper
-    refuses the others."""
-    if d not in (64, 80, 128, 256):
+    """The kernel is built for head dims 32, 64, 80, 128 and 256; the
+    wrapper refuses the others."""
+    if d not in (32, 64, 80, 128, 256):
         with pytest.raises(ValueError, match="head_dim"):
             _card_flash_case(cuda_device, torch.float32, sq=5, sk=200, b=2, depths=[0, 150],
                              q_lens=[5, 3], h=4, kv=2, d=d)
@@ -550,8 +550,8 @@ def test_paged_wrapper_raises_on_inputs_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         fa.flash_attention_paged(q, pk, pv, table[:1], offs, lens, scale=1.0)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_paged(q[..., :32].contiguous(), pk[..., :32].contiguous(),
-                                 pv[..., :32].contiguous(), table, offs, lens, scale=1.0)
+        fa.flash_attention_paged(q[..., :48].contiguous(), pk[..., :48].contiguous(),
+                                 pv[..., :48].contiguous(), table, offs, lens, scale=1.0)
     with pytest.raises(TypeError):
         fa.flash_attention_paged(q, pk, pv, table, offs.long(), lens, scale=1.0)
     # head dim 128 runs (qwen2-moe-a2.7b)

@@ -306,3 +306,36 @@ def test_serve_cli_fails_when_requests_are_stranded(capsys, tmp_path):
 def test_serve_cli_refuses_draft_with_replicas():
     with pytest.raises(SystemExit):
         t_serve.main(CLI + ["--replicas", "2", "--draft", "llama3.2-1b"])
+
+
+def test_serve_cli_plans_on_the_reference_heterogeneous_cluster():
+    """The CLI's modeled cluster is heterogeneous by default, as the
+    reference's (``--heterogeneous`` is ``store_true`` with ``default=True``
+    there): every odd card at half the peak FLOPs and HBM bandwidth of the
+    even ones, the pattern of ``tpu_slice_cluster(4, heterogeneous=True)``,
+    and the replica planner sees it (replicas on cards 1 and 3 at about
+    half the throughput of those on 0 and 2)."""
+    from repro_torch.core.replica import plan_replicas
+
+    args = t_serve.parser().parse_args(CLI + ["--cluster-size", "4", "--replicas", "auto"])
+    assert args.heterogeneous
+    _, _, _, cluster, plan_cfg = t_serve.serving_setup(args)
+    ref = tpu_slice_cluster(4, heterogeneous=True)
+
+    def ratios(c):
+        return [(d.peak_flops / c.devices[0].peak_flops, d.hbm_bw / c.devices[0].hbm_bw)
+                for d in c.devices]
+
+    assert ratios(cluster) == ratios(ref) == [(1.0, 1.0), (0.5, 0.5), (1.0, 1.0), (0.5, 0.5)]
+    # llama3.2-1b's block graph at full width (at smoke width the replicas'
+    # step times are latency, not device speed)
+    graph = t_transformer_graph(t_get_config("llama3.2-1b"), seq_len=args.max_len,
+                                granularity="block")
+    svc = plan_replicas(graph, cluster, dataclasses.replace(plan_cfg, replicas="auto"))
+    rps = {tuple(spec.devices): spec.throughput_rps for spec in svc.replicas}
+    assert sorted(rps) == [(0,), (1,), (2,), (3,)]
+    assert rps[(0,)] == rps[(2,)] and rps[(1,)] == rps[(3,)]
+    assert rps[(1,)] / rps[(0,)] == pytest.approx(0.5, rel=0.02)
+    homogeneous = plan_replicas(graph, h100_cluster(4),
+                                dataclasses.replace(plan_cfg, replicas="auto"))
+    assert svc.total_rps < homogeneous.total_rps
