@@ -85,6 +85,20 @@
   plain greedy decode (:mod:`repro_torch.models.speculative`).
   Per-request-class acceptance rates are reported in
   ``straggler_report()["speculation"]``,
+* **spans** (:mod:`.tracing`), off unless :attr:`ServingEngine.tracer` is
+  given a recorder: each :meth:`ServingEngine.step` is ``engine.step``
+  (attrs ``S``, the token width of its batched forward, 0 when none ran;
+  ``decode``, ``verify``, ``prefill``, ``idle``, its slots by what they
+  did, a slot that prefilled counted as prefill; ``q``, the tokens that
+  entered its forwards), with children ``engine.admit`` (attrs
+  ``admitted``, ``queue``, ``waited``: why the queue's next request still
+  waits, ``slots``, ``width``, ``pool``, ``depth`` or None),
+  ``engine.draft`` (speculation only), ``engine.pack`` (tokens, ``q_lens``,
+  ``cache_pos``, the page table), ``engine.forward`` (the executor's
+  ``executor.stage`` spans inside), ``engine.readback`` (the argmax to the
+  host), ``engine.commit`` (tokens appended, retirement, prefix
+  registration) and ``engine.observe`` (a window closed).  The unfused and
+  blocking-prefill paths use the same names,
 * **not served here**: an SSM, hybrid, enc-dec or VLM model (mamba2,
   zamba2, seamless, qwen2-vl) raises ``NotImplementedError``, and an SSM
   or hybrid draft ``ValueError``: as in the reference, those families are
@@ -101,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -121,6 +136,7 @@ from repro_torch.core.milp import PlacementResult
 from repro_torch.core.placement import PlanConfig, plan, replan
 from repro_torch.core.spec_plan import merge_spec_graphs, split_spec_placement
 from repro_torch.models.speculative import greedy_accept, rolled_back_draft_pos
+from . import tracing
 from .adaptation import AdaptationConfig, AdaptationEvent, DeratePolicy
 from .kv_pool import StrictKVPool
 from .stage_executor import (
@@ -159,6 +175,12 @@ class Request:
     ``deadline`` (router steps since submission, ``None`` = none) and the
     ``max_retries`` budget are enforced by the router; the engine itself
     only distinguishes finished vs shed.
+
+    Stamps, on ``time.perf_counter()`` and always on: ``t_submit`` (first
+    given to an engine's :meth:`~ServingEngine.submit`), ``t_admit`` (first
+    given a slot) and ``t_first`` (first output token appended, at the end
+    of its prefill); each keeps its first value across hot-swap re-queues
+    and router retries.
     """
 
     rid: int
@@ -181,6 +203,9 @@ class Request:
     max_retries: int = 2
     retries: int = 0
     state: str = "pending"
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
 
 
 class ServingEngine:
@@ -293,6 +318,7 @@ class ServingEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.straggler_factor = straggler_factor
+        self._tracer: Optional[tracing.SpanRecorder] = None
         if admission not in ("queue", "reject"):
             raise ValueError(f"admission must be 'queue' or 'reject', got {admission!r}")
         self.admission = admission
@@ -600,6 +626,30 @@ class ServingEngine:
         underate, hold, replan) made by the policy."""
         return self.policy.events
 
+    @property
+    def tracer(self) -> Optional[tracing.SpanRecorder]:
+        """The span recorder, or None (off, the default).  Setting a
+        recorder turns the spans of this engine and of its executors on;
+        None turns them off."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, recorder: Optional[tracing.SpanRecorder]) -> None:
+        self._tracer = recorder
+        self._share_tracer()
+
+    def record_spans(self) -> tracing.SpanRecorder:
+        """Turn the spans on with a fresh recorder and return it
+        (``self.tracer = SpanRecorder()``), for a caller that holds the
+        engine but not this package."""
+        self.tracer = tracing.SpanRecorder()
+        return self._tracer
+
+    def _share_tracer(self) -> None:
+        for ex in (self.executor, self._draft_executor):
+            if ex is not None:
+                ex.tracer = self._tracer
+
     # ------------------------------------------------------------------
     def _build_executor(self, placement: Dict[int, int]):
         stages = stages_from_placement(
@@ -628,6 +678,7 @@ class ServingEngine:
             self._draft_executor = StageExecutor(
                 self.draft_cfg, self.draft_params, dstages
             )
+        self._share_tracer()
         # per-slot KV write ceiling for speculative rounds: dense rows allow
         # the full max_len; paged slots may only write inside their mapped
         # pages (set at admission to the sequence's allocated head)
@@ -716,6 +767,8 @@ class ServingEngine:
             raise RuntimeError(
                 "engine is draining: new requests must go to another replica"
             )
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
         budget = self.max_len - int(req.max_new_tokens)
         if len(req.prompt) > budget:
             if self.oversize == "reject" or budget < 1:
@@ -765,7 +818,16 @@ class ServingEngine:
                 return i
         return None
 
-    def _admit(self):
+    def _admit(self) -> Tuple[List[Tuple[int, int]], Optional[str]]:
+        """Fill free slots from the queue.  Returns the slots taken, each
+        with the tokens a blocking prefill ran for it there (0 when the
+        prompt is left to chunked prefill), and why the queue's next
+        request still waits: ``"slots"`` (no free slot), ``"width"``
+        (runtime Eq. 5 caps the in-flight count), ``"pool"`` (the page pool
+        cannot map it), ``"depth"`` (lockstep: not at the batch's depth),
+        or None (none waits, or none may start while draining)."""
+        taken: List[Tuple[int, int]] = []
+        waited: Optional[str] = None
         for slot in range(self.slots):
             qi = self._next_queue_idx()
             if self.active[slot] is None and qi is not None:
@@ -789,6 +851,7 @@ class ServingEngine:
                     }
                     depth = len(head.prompt) + len(head.out_tokens)
                     if pos_set and pos_set != {depth}:
+                        waited = "depth"
                         break
                 toks_head = list(head.prompt) + list(head.out_tokens)
                 # paged: the sequence's pages (net of reusable shared-prefix
@@ -807,9 +870,8 @@ class ServingEngine:
                 pool_ok = self._kv_pool is None or self._kv_pool.can_admit(
                     toks_head, total_head
                 )
-                if (n_active > 0 and not self._admission_ok(n_active + 1)) or (
-                    n_active > 0 and not pool_ok
-                ):
+                width_ok = n_active == 0 or self._admission_ok(n_active + 1)
+                if not width_ok or (n_active > 0 and not pool_ok):
                     # one more resident KV copy would overflow a planned
                     # device (or the page pool). (With zero active requests we
                     # admit regardless: if even one sequence does not fit,
@@ -825,7 +887,9 @@ class ServingEngine:
                         req.done = True
                         self._record_finished(req)
                         continue
-                    break  # "queue": retry when a slot's KV frees
+                    # "queue": retry when a slot's KV frees
+                    waited = "width" if not width_ok else "pool"
+                    break
                 req = self.queue.pop(qi)
                 was_started = req.started
                 req.started = True
@@ -855,6 +919,7 @@ class ServingEngine:
                             self.active[slot] = None
                             req.started = was_started
                             self.queue.insert(qi, req)
+                            waited = "pool"
                             break
                         if copies:
                             self.caches = self.executor.copy_pages(
@@ -874,19 +939,35 @@ class ServingEngine:
                     self._slot_cap[slot] = (
                         total_head if self._kv_pool is not None else self.max_len
                     )
+                    if req.t_admit is None:
+                        req.t_admit = time.perf_counter()
+                    taken.append((slot, 0))
                     continue
                 # blocking whole-prompt prefill (lockstep baseline, or
                 # prefill_chunk=None): batch-1 prefill into the slot's row
-                toks = torch.tensor([toks_list], dtype=torch.int32)
-                logits, slot_caches = self._prefill_slot(toks)
-                nxt = int(torch.argmax(logits[0, -1]))
-                req.out_tokens.append(nxt)
-                self._write_slot_cache(slot, slot_caches)
-                self.slot_pos[slot] = len(toks_list)
-                # the prefill-produced token can itself finish the request
-                # (EOS, or a re-queued request one token short of budget) —
-                # retire NOW or a decode step would overshoot the budget
-                self._maybe_retire(slot, nxt)
+                if req.t_admit is None:
+                    req.t_admit = time.perf_counter()
+                taken.append((slot, len(toks_list)))
+                tr = self._tracer
+                with tracing.span(tr, "engine.forward"):
+                    toks = torch.tensor([toks_list], dtype=torch.int32)
+                    logits, slot_caches = self._prefill_slot(toks)
+                with tracing.span(tr, "engine.readback"):
+                    nxt = int(torch.argmax(logits[0, -1]))
+                with tracing.span(tr, "engine.commit"):
+                    req.out_tokens.append(nxt)
+                    if req.t_first is None:
+                        req.t_first = time.perf_counter()
+                    self._write_slot_cache(slot, slot_caches)
+                    self.slot_pos[slot] = len(toks_list)
+                    # the prefill-produced token can itself finish the
+                    # request (EOS, or a re-queued request one token short
+                    # of budget) — retire NOW or a decode step would
+                    # overshoot the budget
+                    self._maybe_retire(slot, nxt)
+        if waited is None and self._next_queue_idx() is not None:
+            waited = "slots"
+        return taken, waited
 
     def _ensure_caches(self):
         """Lazily allocate device caches: paged pools (+ trash page) when a
@@ -937,12 +1018,13 @@ class ServingEngine:
             for st_caches in self.caches
         ]
 
-    def _advance_prefill(self) -> Optional[int]:
+    def _advance_prefill(self) -> Optional[Tuple[int, int]]:
         """Consume ONE ``prefill_chunk``-token chunk for the next mid-prefill
         slot (round-robin), forwarded batch-1 into that slot's cache row at
         its current depth.  At most one chunk per engine step, so active
         slots never stall more than one chunk between decode steps.  Returns
-        the advanced slot index (None when nothing is mid-prefill)."""
+        the advanced slot index and the prompt tokens it consumed (None
+        when nothing is mid-prefill)."""
         if not self._prefill_toks:
             return None
         slot = None
@@ -966,29 +1048,38 @@ class ServingEngine:
         pad = self.prefill_chunk - n
         if pad and done + self.prefill_chunk > self.max_len:
             pad = 0
-        chunk_toks = toks_all[done : done + n] + [0] * pad
-        chunk = torch.tensor([chunk_toks], dtype=torch.int32)
-        row = self._slot_row_caches(slot)
-        logits, row = self.executor.forward(
-            chunk, row, cache_pos=int(done), kind="prefill"
-        )
-        self._write_slot_cache(slot, row)
+        tr = self._tracer
+        with tracing.span(tr, "engine.pack"):
+            chunk_toks = toks_all[done : done + n] + [0] * pad
+            chunk = torch.tensor([chunk_toks], dtype=torch.int32)
+            row = self._slot_row_caches(slot)
+        with tracing.span(tr, "engine.forward"):
+            logits, row = self.executor.forward(
+                chunk, row, cache_pos=int(done), kind="prefill"
+            )
+        req = self.active[slot]
         done += n
-        self._prefill_done[slot] = done
-        # a garbage decode row writes (and is later overwritten) at this
-        # depth while the prefill is still in flight — see step()
-        self.slot_pos[slot] = done
-        if done == len(toks_all):
-            del self._prefill_toks[slot]
-            del self._prefill_done[slot]
-            req = self.active[slot]
-            # the next token comes from the LAST REAL prompt row (row n-1),
-            # not the padded tail
-            nxt = int(torch.argmax(logits[0, n - 1]))
-            req.out_tokens.append(nxt)
-            # the prefill-produced token can itself finish the request
-            self._maybe_retire(slot, nxt)
-        return slot
+        last = done == len(toks_all)
+        if last:
+            with tracing.span(tr, "engine.readback"):
+                # the next token comes from the LAST REAL prompt row (row
+                # n-1), not the padded tail
+                nxt = int(torch.argmax(logits[0, n - 1]))
+        with tracing.span(tr, "engine.commit"):
+            self._write_slot_cache(slot, row)
+            self._prefill_done[slot] = done
+            # a garbage decode row writes (and is later overwritten) at
+            # this depth while the prefill is still in flight — see step()
+            self.slot_pos[slot] = done
+            if last:
+                del self._prefill_toks[slot]
+                del self._prefill_done[slot]
+                req.out_tokens.append(nxt)
+                if req.t_first is None:
+                    req.t_first = time.perf_counter()
+                # the prefill-produced token can itself finish the request
+                self._maybe_retire(slot, nxt)
+        return slot, n
 
     def _write_slot_cache(self, slot: int, slot_caches):
         if self.caches is None:
@@ -1063,13 +1154,31 @@ class ServingEngine:
 
         An attached :class:`~repro_torch.serving.faults.FaultInjector` is polled
         FIRST — scheduled faults land before admission/decode, so a step-N
-        fault affects step N, exactly as the schedule says."""
-        if self._injector is not None:
-            self._injector.on_step(self)
-        self._admit()
-        if self._fused_on():
-            return self._step_fused()
-        adv_slot = self._advance_prefill() if self._prefill_toks else None
+        fault affects step N, exactly as the schedule says.
+
+        With :attr:`tracer` set, the step is one ``engine.step`` span (see
+        the module docstring for its children and attributes)."""
+        tr = self._tracer
+        with tracing.span(tr, "engine.step") as sp:
+            if sp:
+                sp.set(S=0, decode=0, verify=0, prefill=0, idle=self.slots, q=0)
+            if self._injector is not None:
+                self._injector.on_step(self)
+            with tracing.span(tr, "engine.admit") as asp:
+                taken, waited = self._admit()
+                if asp:
+                    asp.set(admitted=len(taken), queue=len(self.queue), waited=waited)
+            if self._fused_on():
+                return self._step_fused(sp)
+            return self._step_unfused(sp, taken)
+
+    def _step_unfused(self, sp, taken: List[Tuple[int, int]]) -> int:
+        """The rest of an unfused step (after admission, whose blocking
+        prefills ``taken`` lists): at most one prefill chunk between
+        decode steps, then one batched decode over every slot."""
+        tr = self._tracer
+        adv = self._advance_prefill() if self._prefill_toks else None
+        adv_slot = None if adv is None else adv[0]
         # decode-ready slots: active AND fully prefilled
         idx = [
             i for i, r in enumerate(self.active)
@@ -1080,40 +1189,53 @@ class ServingEngine:
         progressed = set(idx)
         if adv_slot is not None:
             progressed.add(adv_slot)
+        if sp:
+            pf = {slot for slot, n in taken if n}
+            if adv_slot is not None:
+                pf.add(adv_slot)
+            dec = len(set(idx) - pf)
+            sp.set(S=1 if idx else 0, decode=dec, prefill=len(pf),
+                   idle=self.slots - dec - len(pf),
+                   q=sum(n for _, n in taken) + (adv[1] if adv else 0) + len(idx))
         if not idx:
             return len(progressed)
         # batched single-token decode over ALL slots (inactive and
         # mid-prefill slots decode garbage into their own rows — inactive
         # rows are masked at retirement, mid-prefill rows are overwritten
         # by their next chunk)
-        last = [
-            (
-                self.active[i].out_tokens[-1]
-                if self.active[i] and i not in self._prefill_toks
-                else 0
+        with tracing.span(tr, "engine.pack"):
+            last = [
+                (
+                    self.active[i].out_tokens[-1]
+                    if self.active[i] and i not in self._prefill_toks
+                    else 0
+                )
+                for i in range(self.slots)
+            ]
+            toks = torch.tensor(last, dtype=torch.int32)[:, None]
+            if self.batching == "lockstep":
+                pos = int(max(self.slot_pos[i] for i in idx))
+            else:
+                pos = np.asarray(self.slot_pos, np.int32)   # one depth per slot
+        with tracing.span(tr, "engine.forward"):
+            logits, self.caches = self.executor.forward(
+                toks, self.caches, cache_pos=pos, kind="decode"
             )
-            for i in range(self.slots)
-        ]
-        toks = torch.tensor(last, dtype=torch.int32)[:, None]
-        if self.batching == "lockstep":
-            pos = int(max(self.slot_pos[i] for i in idx))
-        else:
-            pos = np.asarray(self.slot_pos, np.int32)   # one depth per slot
-        logits, self.caches = self.executor.forward(
-            toks, self.caches, cache_pos=pos, kind="decode"
-        )
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-        for i in idx:
-            req = self.active[i]
-            req.out_tokens.append(int(nxt[i]))
-            self.slot_pos[i] += 1
-            self._maybe_retire(i, int(nxt[i]))
+        with tracing.span(tr, "engine.readback"):
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        with tracing.span(tr, "engine.commit"):
+            for i in idx:
+                req = self.active[i]
+                req.out_tokens.append(int(nxt[i]))
+                self.slot_pos[i] += 1
+                self._maybe_retire(i, int(nxt[i]))
         # closed loop: every window_steps decode steps, observe and adapt
         ws = self.policy.config.window_steps
         if ws > 0:
             self._steps_since_window += 1
             if self._steps_since_window >= ws:
-                self.observe_window()
+                with tracing.span(tr, "engine.observe"):
+                    self.observe_window()
         return len(progressed)
 
     def _fused_decode_frac(self, n_prefill_rows: int) -> Optional[List[float]]:
@@ -1140,7 +1262,7 @@ class ServingEngine:
         self._table_host.copy_(torch.from_numpy(self._kv_pool.table_array()))
         return self._table_host
 
-    def _step_fused(self) -> int:
+    def _step_fused(self, sp) -> int:
         """One FUSED engine iteration: decode-ready slots, mid-prefill
         slots, and idle slots ride one ``[slots, S]`` forward with per-row
         ``(cache_pos, q_len)`` — S is ``prefill_chunk`` when any prefill is
@@ -1164,7 +1286,9 @@ class ServingEngine:
         leave garbage KV that the overwrite-before-read argument retires
         (see :mod:`repro_torch.models.speculative`), and the draft rolls
         back by bookkeeping only
-        (:func:`~repro_torch.models.speculative.rolled_back_draft_pos`)."""
+        (:func:`~repro_torch.models.speculative.rolled_back_draft_pos`).
+
+        ``sp`` is the step's span, given the step's rows by kind."""
         idx = [
             i for i, r in enumerate(self.active)
             if r is not None and i not in self._prefill_toks
@@ -1172,89 +1296,107 @@ class ServingEngine:
         pf_slots = sorted(self._prefill_toks)
         if not idx and not pf_slots:
             return 0
-        self._ensure_caches()
+        tr = self._tracer
         k = self.spec_tokens
-        proposals, committed = self._draft_phase(idx) if self._spec_on() else ({}, {})
+        proposals, committed = {}, {}
+        if self._spec_on():
+            with tracing.span(tr, "engine.draft"):
+                proposals, committed = self._draft_phase(idx)
         dec_rows = [i for i in idx if i not in proposals]
-        s = self.prefill_chunk if pf_slots else 1
-        if proposals:
-            s = max(s, k + 1)
-        tokens = np.zeros((self.slots, s), dtype=np.int32)
-        q_lens = np.zeros(self.slots, dtype=np.int32)
-        cache_pos = np.zeros(self.slots, dtype=np.int32)
-        for i in idx:
-            tokens[i, 0] = self.active[i].out_tokens[-1]
-            q_lens[i] = 1
-            cache_pos[i] = self.slot_pos[i]
-        for i, props in proposals.items():
-            tokens[i, 1 : k + 1] = props
-            q_lens[i] = k + 1
-        pf_n: Dict[int, int] = {}
-        for i in pf_slots:
-            done = self._prefill_done[i]
-            toks_all = self._prefill_toks[i]
-            n = min(self.prefill_chunk, len(toks_all) - done)
-            tokens[i, :n] = toks_all[done : done + n]
-            q_lens[i] = n
-            cache_pos[i] = done
-            pf_n[i] = n
-        logits, self.caches = self.executor.forward(
-            torch.from_numpy(tokens),
-            self.caches,
-            cache_pos=cache_pos,
-            kind="fused",
-            q_lens=torch.from_numpy(q_lens),
-            fused_decode_frac=self._fused_decode_frac(len(pf_slots)),
-            page_table=self._page_table(),
-        )
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # [slots, S]
-        for i in dec_rows:
-            req = self.active[i]
-            req.out_tokens.append(int(nxt[i, 0]))
-            self.slot_pos[i] += 1
-            self._maybe_retire(i, int(nxt[i, 0]))
-        for i, props in proposals.items():
-            req = self.active[i]
-            # preds[t] = the target's greedy token after the pending token
-            # plus d_1..d_t — row t of the verify span
-            preds = [int(nxt[i, t]) for t in range(k + 1)]
-            accepted, emitted = greedy_accept(props, preds)
-            self._record_acceptance(req, proposed=k, accepted=accepted)
-            # draft rollback is bookkeeping: keep the accepted prefix of
-            # the proposals it already fed itself
-            self._draft_pos[i] = rolled_back_draft_pos(committed[i], accepted, k)
-            # variable advance, one token at a time: EOS / budget /
-            # capacity truncate the round exactly where plain greedy
-            # decoding would have stopped
-            for tok in emitted:
-                req.out_tokens.append(tok)
-                self.slot_pos[i] += 1
-                if self._maybe_retire(i, tok):
-                    break
-        for i in pf_slots:
-            n = pf_n[i]
-            done = self._prefill_done[i] + n
-            self._prefill_done[i] = done
-            self.slot_pos[i] = done
-            if done == len(self._prefill_toks[i]):
-                del self._prefill_toks[i]
-                del self._prefill_done[i]
+        with tracing.span(tr, "engine.pack"):
+            self._ensure_caches()
+            s = self.prefill_chunk if pf_slots else 1
+            if proposals:
+                s = max(s, k + 1)
+            tokens = np.zeros((self.slots, s), dtype=np.int32)
+            q_lens = np.zeros(self.slots, dtype=np.int32)
+            cache_pos = np.zeros(self.slots, dtype=np.int32)
+            for i in idx:
+                tokens[i, 0] = self.active[i].out_tokens[-1]
+                q_lens[i] = 1
+                cache_pos[i] = self.slot_pos[i]
+            for i, props in proposals.items():
+                tokens[i, 1 : k + 1] = props
+                q_lens[i] = k + 1
+            pf_n: Dict[int, int] = {}
+            for i in pf_slots:
+                done = self._prefill_done[i]
+                toks_all = self._prefill_toks[i]
+                n = min(self.prefill_chunk, len(toks_all) - done)
+                tokens[i, :n] = toks_all[done : done + n]
+                q_lens[i] = n
+                cache_pos[i] = done
+                pf_n[i] = n
+            decode_frac = self._fused_decode_frac(len(pf_slots))
+            table = self._page_table()
+        if sp:
+            rows = len(dec_rows) + len(proposals) + len(pf_slots)
+            sp.set(S=s, decode=len(dec_rows), verify=len(proposals), prefill=len(pf_slots),
+                   idle=self.slots - rows, q=int(q_lens.sum()))
+        with tracing.span(tr, "engine.forward"):
+            logits, self.caches = self.executor.forward(
+                torch.from_numpy(tokens),
+                self.caches,
+                cache_pos=cache_pos,
+                kind="fused",
+                q_lens=torch.from_numpy(q_lens),
+                fused_decode_frac=decode_frac,
+                page_table=table,
+            )
+        with tracing.span(tr, "engine.readback"):
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()   # [slots, S]
+        with tracing.span(tr, "engine.commit"):
+            for i in dec_rows:
                 req = self.active[i]
-                if self._kv_pool is not None:
-                    # prompt KV is resident: register its page-aligned
-                    # prefix so later requests can share it (BEFORE any
-                    # retirement — the pages then park in the LRU, reusable)
-                    self._kv_pool.commit_prefix(i, req.prompt)
-                # next token from the last REAL prompt row of the chunk
-                tok = int(nxt[i, n - 1])
-                req.out_tokens.append(tok)
-                self._maybe_retire(i, tok)
+                req.out_tokens.append(int(nxt[i, 0]))
+                self.slot_pos[i] += 1
+                self._maybe_retire(i, int(nxt[i, 0]))
+            for i, props in proposals.items():
+                req = self.active[i]
+                # preds[t] = the target's greedy token after the pending
+                # token plus d_1..d_t — row t of the verify span
+                preds = [int(nxt[i, t]) for t in range(k + 1)]
+                accepted, emitted = greedy_accept(props, preds)
+                self._record_acceptance(req, proposed=k, accepted=accepted)
+                # draft rollback is bookkeeping: keep the accepted prefix of
+                # the proposals it already fed itself
+                self._draft_pos[i] = rolled_back_draft_pos(committed[i], accepted, k)
+                # variable advance, one token at a time: EOS / budget /
+                # capacity truncate the round exactly where plain greedy
+                # decoding would have stopped
+                for tok in emitted:
+                    req.out_tokens.append(tok)
+                    self.slot_pos[i] += 1
+                    if self._maybe_retire(i, tok):
+                        break
+            for i in pf_slots:
+                n = pf_n[i]
+                done = self._prefill_done[i] + n
+                self._prefill_done[i] = done
+                self.slot_pos[i] = done
+                if done == len(self._prefill_toks[i]):
+                    del self._prefill_toks[i]
+                    del self._prefill_done[i]
+                    req = self.active[i]
+                    if self._kv_pool is not None:
+                        # prompt KV is resident: register its page-aligned
+                        # prefix so later requests can share it (BEFORE any
+                        # retirement — the pages then park in the LRU,
+                        # reusable)
+                        self._kv_pool.commit_prefix(i, req.prompt)
+                    # next token from the last REAL prompt row of the chunk
+                    tok = int(nxt[i, n - 1])
+                    req.out_tokens.append(tok)
+                    if req.t_first is None:
+                        req.t_first = time.perf_counter()
+                    self._maybe_retire(i, tok)
         # closed loop: fused steps that decoded count toward the window
         ws = self.policy.config.window_steps
         if idx and ws > 0:
             self._steps_since_window += 1
             if self._steps_since_window >= ws:
-                self.observe_window()
+                with tracing.span(tr, "engine.observe"):
+                    self.observe_window()
         return len(set(idx) | set(pf_slots))
 
     # ------------------------------------------------------------------

@@ -16,6 +16,9 @@ vector — ragged batches where every slot row sits at its own depth —
 carried across stage boundaries unchanged.  Paged KV: each stage holds
 page pools (:meth:`StageExecutor.init_paged_caches`) and the host-owned
 page table rides into :meth:`StageExecutor.forward` as ``page_table``.
+With a span recorder (:attr:`StageExecutor.tracer`, set by the serving
+engine), each stage of a forward is an ``executor.stage`` span, and its
+``torch.cuda.synchronize`` the child ``executor.sync``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import OpGraph
 from repro_torch.models import transformer
 from repro_torch.models.layers import uses_kernels, rmsnorm, softcap
+from . import tracing
 
 
 @dataclass
@@ -122,6 +126,7 @@ class StageExecutor:
             deque(maxlen=4096) for _ in stages
         ]
         self._fns: Dict[int, Callable] = {}
+        self.tracer: Optional[tracing.SpanRecorder] = None
 
     # ------------------------------------------------------------------
     def _place_params(self, params):
@@ -285,50 +290,45 @@ class StageExecutor:
         x = tokens
         new_caches = []
         on_dev: Dict[Any, tuple] = {}
+        tr = self.tracer
         for si, st in enumerate(self.stages):
-            t0 = time.perf_counter()
-            x = x.to(st.device)                       # inter-stage data flow
-            if st.device not in on_dev:
-                on_dev[st.device] = (
-                    positions.to(st.device), cp.to(st.device),
-                    None if ql is None else ql.to(st.device),
-                    None if tbl is None else tbl.to(st.device, non_blocking=True),
-                )
-            pos_d, cp_d, ql_d, tbl_d = on_dev[st.device]
-            fn = self._fns.get(si)
-            if fn is None:
-                fn = self._fns[si] = self._stage_fn(si)
-            st_caches = caches[si] if caches is not None else None
-            x, nc = fn(self.stage_params[si], x, pos_d, st_caches, cp_d, ql_d, tbl_d)
-            if torch.device(st.device).type == "cuda":
-                torch.cuda.synchronize(st.device)
-            dt = time.perf_counter() - t0
-            if kind == "fused":
-                # split the single wall-clock sample by the cost model's
-                # predicted decode share so neither op class pollutes the
-                # other's observation window
-                f = 1.0 if fused_decode_frac is None else float(fused_decode_frac[si])
-                f = min(max(f, 0.0), 1.0)
-                if f > 0.0:
-                    self._stage_times[si].append(("decode", dt * f))
-                if f < 1.0:
-                    self._stage_times[si].append(("prefill", dt * (1.0 - f)))
-            else:
-                self._stage_times[si].append((kind, dt))
-            new_caches.append(nc)
+            with tracing.span(tr, "executor.stage"):
+                t0 = time.perf_counter()
+                x = x.to(st.device)                       # inter-stage data flow
+                if st.device not in on_dev:
+                    on_dev[st.device] = (
+                        positions.to(st.device), cp.to(st.device),
+                        None if ql is None else ql.to(st.device),
+                        None if tbl is None else tbl.to(st.device, non_blocking=True),
+                    )
+                pos_d, cp_d, ql_d, tbl_d = on_dev[st.device]
+                fn = self._fns.get(si)
+                if fn is None:
+                    fn = self._fns[si] = self._stage_fn(si)
+                st_caches = caches[si] if caches is not None else None
+                x, nc = fn(self.stage_params[si], x, pos_d, st_caches, cp_d, ql_d, tbl_d)
+                if torch.device(st.device).type == "cuda":
+                    with tracing.span(tr, "executor.sync"):
+                        torch.cuda.synchronize(st.device)
+                dt = time.perf_counter() - t0
+                if kind == "fused":
+                    # split the single wall-clock sample by the cost model's
+                    # predicted decode share so neither op class pollutes the
+                    # other's observation window
+                    f = 1.0 if fused_decode_frac is None else float(fused_decode_frac[si])
+                    f = min(max(f, 0.0), 1.0)
+                    if f > 0.0:
+                        self._stage_times[si].append(("decode", dt * f))
+                    if f < 1.0:
+                        self._stage_times[si].append(("prefill", dt * (1.0 - f)))
+                else:
+                    self._stage_times[si].append((kind, dt))
+                new_caches.append(nc)
         return x, new_caches
 
-    # stage latency stats (straggler detection feed)
+    # stage latency samples (straggler detection feed)
     def _times(self, rec, kind: Optional[str]) -> List[float]:
         return [t for k, t in rec if kind is None or k == kind]
-
-    def stage_latency_stats(self, kind: Optional[str] = None) -> List[Dict[str, float]]:
-        """mean/p95/n summary per stage over the RETAINED forward calls (a
-        bounded ring that observation windows also drain).  ``kind`` filters
-        to "decode" or "prefill" samples (None = all)."""
-        return [
-            stats_from_times(self._times(rec, kind)) for rec in self._stage_times
-        ]
 
     def stage_times(self, kind: Optional[str] = None) -> List[List[float]]:
         """Per-stage wall-clock seconds of recent forward calls (bounded
